@@ -140,7 +140,12 @@ class ComposedConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Data synthesis and loading (read for compatibility only)."""
+    """Data loading. The port loads the ``fake`` dataset and offline
+    ``mcse`` pairs (``train_set`` other than "online") in process,
+    ``transfer_int16`` included; online synthesis, ``l3das23`` and
+    ``device_mix`` raise ``NotImplementedError``. ``num_workers`` and
+    ``prefetch`` serve only online synthesis in the JAX package and are
+    read, not acted on. Every key is accepted so every config loads."""
 
     dataset: str = "mcse"
     train_set: str = "online"
@@ -167,8 +172,11 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training settings (read for compatibility; training is a later
-    slice of the port)."""
+    """Training settings, acted on by ``train.trainer.train`` on one
+    device. ``compute_dtype`` must be "float32" and ``mesh_axes``
+    ("data",) (``require_training``). ``remat`` and ``remat_policy`` are
+    read and not acted on: they trade memory for recompute and do not
+    change results."""
 
     batch_size: int = 8
     total_epoch: int = 100
@@ -224,6 +232,10 @@ class ExperimentConfig:
             }),
         )
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
     @classmethod
     def load(cls, path: str) -> "ExperimentConfig":
         with open(path) as f:
@@ -240,7 +252,7 @@ def require_slice(cfg) -> None:
     if cfg.norm_type != "IN":
         raise NotImplementedError(
             f"norm_type={cfg.norm_type!r}: the port runs 'IN' only; cLN and "
-            "BN come with the streaming and training slices")
+            "BN are later slices of the port")
     if not cfg.is_u2:
         raise NotImplementedError(
             "is_u2=False: the plain UNet encoder/decoder is a later slice of "
@@ -254,3 +266,26 @@ def require_slice(cfg) -> None:
             raise NotImplementedError(
                 f"bf_type={cfg.bf_type!r}: the port runs the 'lstm' head "
                 "only; the cnn head is a later slice")
+
+
+def require_training(cfg: ExperimentConfig) -> None:
+    """Refuse a training configuration this slice of the port does not
+    run (beside ``require_slice``, which the models apply): bf16 compute,
+    batch-norm models, on-device synthesis, and meshes beyond one device's
+    data axis."""
+    if cfg.train.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
+            "float32 only; bf16 mixed precision is a later slice")
+    if "BN" in (cfg.model.eabnet.norm_type, cfg.model.gagnet.norm_type):
+        raise NotImplementedError(
+            "norm_type='BN': batch-norm training (running statistics) is a "
+            "later slice of the port")
+    if cfg.data.device_mix:
+        raise NotImplementedError(
+            f"device_mix={cfg.data.device_mix!r}: on-device synthesis is a "
+            "later slice of the port")
+    if tuple(cfg.train.mesh_axes) != ("data",):
+        raise NotImplementedError(
+            f"mesh_axes={cfg.train.mesh_axes!r}: the port trains on one "
+            "device; multi-card training is a later slice")

@@ -32,8 +32,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C function -> (argtypes, restype)
     "eabnet_lstm_bf_fwd": ([_P] * 5 + [_I, _I, _P], _I),
+    "eabnet_lstm_bf_fwd_train": ([_P] * 8 + [_I, _I, _P], _I),
+    "eabnet_lstm_bf_bwd_workspace": ([_I, _I], ctypes.c_longlong),
+    "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _P], _I),
     "eabnet_tcm_chain_fwd": ([_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_tcm_chain_workspace": ([_I, _I], ctypes.c_longlong),
+    "eabnet_tcm_chain_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
+    "eabnet_tcm_chain_bwd": ([_P] * 12 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_error_string": ([_I], ctypes.c_char_p),
 }
 

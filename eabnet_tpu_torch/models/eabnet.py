@@ -23,6 +23,11 @@ def to_reference_layout(esti: torch.Tensor) -> torch.Tensor:
     return esti.permute(0, 3, 1, 2)
 
 
+def from_reference_layout(spec: torch.Tensor) -> torch.Tensor:
+    """(B, 2, T, F) -> (B, T, F, 2)."""
+    return spec.permute(0, 2, 3, 1)
+
+
 class _LSTMParams(nn.Module):
     """One LSTM layer's weights in the JAX package's layout: w_ih (in, 4H),
     w_hh (H, 4H), biases (4H,); gate order i, f, g, o."""

@@ -51,7 +51,7 @@ class NormSwitch(nn.Module):
         if norm_type != "IN":
             raise NotImplementedError(
                 f"norm_type={norm_type!r}: the port runs 'IN' only; cLN "
-                "and BN come with the streaming and training slices")
+                "and BN are later slices of the port")
         self.norm = InstanceNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,11 @@ def port_modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = ["eabnet_tpu_torch"] + port_modules()
-    assert "eabnet_tpu_torch.inference" in mods
+    assert {"eabnet_tpu_torch.inference", "eabnet_tpu_torch.losses",
+            "eabnet_tpu_torch.train.step", "eabnet_tpu_torch.train.trainer",
+            "eabnet_tpu_torch.train.checkpoint",
+            "eabnet_tpu_torch.train.loggers", "eabnet_tpu_torch.cli.train",
+            "eabnet_tpu_torch.data.datasets"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -181,6 +181,9 @@ def test_wrappers_refuse_bad_arguments():
             tcm_chain(x[0], w, (1, 2, 4), True)
         with pytest.raises(ValueError):  # three weights, two dilations
             tcm_chain(x, w, (1, 2), True)
-    # no backward kernel yet: a gradient request is refused, not dropped
-    with pytest.raises(NotImplementedError):
-        double_lstm(args[0].requires_grad_(), *args[1:])
+    # a gradient request is served on the CPU by the plain version
+    xw1 = args[0].clone().requires_grad_()
+    double_lstm(xw1, *args[1:]).sum().backward()
+    ref = torch.autograd.grad(
+        double_lstm_reference(xw1, *args[1:]).sum(), xw1)[0]
+    np.testing.assert_array_equal(xw1.grad.numpy(), ref.numpy())
