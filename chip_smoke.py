@@ -14,19 +14,25 @@ Phases, each announced with its elapsed seconds:
    yardstick's where one PyTorch call computes the same function, and the
    bound: max(FLOPs / 67 TFLOP/s, bytes / 3.35 TB/s), the H100 SXM f32
    non-tensor peak and memory rate.
-4. slice: release/composed_9mic through load_enhancer on the card. One item
-   alone, with the kernels' launch counts read around that forward and the
-   output held against the JAX package's golden; then the 7 validation
-   items as one batch, scored by SI-SDR against the clean references, and
-   timed.
+4. slice: release/composed_9mic through load_enhancer on the card, with
+   torch's default TF32 flags as a user has them. One item alone, with the
+   kernels' launch counts read around that forward and the output held
+   against the JAX package's golden; then the 7 validation items as one
+   batch, scored by SI-SDR against the clean references, and timed; the
+   flags must be as they were.
 5. profile: that batch once more under torch.profiler, device time by
    kernel and by category, and the device's idle share.
 6. backward (the train phase, part 1): each backward kernel, and the
    LSTM-BF training forward that saves its states, against its plain
    version on the card at the training shapes (T = 601; LSTM L = 1,127 and
    161; TCM chains at B = 7 and 1), seeded inputs and cotangents, release
-   weights; times, the plain version's, cuDNN's LSTM backward as the
-   yardstick, and the bound. Tolerances are the JAX gradient tests'
+   weights; times (the LSTM-BF backward also split into its three
+   launches: the reverse-time walk, the weight-gradient partials, their
+   sum), the plain version's, cuDNN's LSTM backward (and forward with grad
+   on) as the yardstick, and the bound (for the LSTM-BF backward also at
+   the tensor cores' TF32 rate, as its products run as three TF32
+   products each). A second LSTM-BF backward launch on the same input
+   must give the same bits. Tolerances are the JAX gradient tests'
    (LSTM 3e-5 / 5e-5, rtol 1e-4; TCM 6e-5, rtol 1e-3), applied per entry
    to d xw1. The weight gradients are sums over ~10^5-10^6 rows, whose
    float32 rounding is relative to the largest terms: against a float64
@@ -71,6 +77,7 @@ import time
 BUDGET_S = 1100           # a hang dumps every thread's stack and exits
 F32_PEAK = 67e12          # H100 SXM f32 (non-tensor) FLOP/s
 MEM_RATE = 3.35e12        # H100 SXM HBM3 bytes/s
+TF32_PEAK = 495e12        # H100 SXM dense TF32 tensor-core FLOP/s
 KERNEL_ATOL = 2e-5        # the JAX kernel tests' forward tolerance
 # the JAX kernel tests' gradient tolerances (tests/test_kernels.py,
 # tests/test_tcm_chain.py)
@@ -280,6 +287,7 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     fwd_err = max((a - b).abs().max().item()
                   for a, b in zip(states, ref_states))
     got = K._launch_bwd(xw1, dy, *states, *w)
+    again = K._launch_bwd(xw1, dy, *states, *w)
     ref = K.double_lstm_bwd_reference(xw1, dy, *states, *w)
     ref64 = K.double_lstm_bwd_reference(
         *(a.double() for a in (xw1, dy) + tuple(states) + tuple(w)))
@@ -289,10 +297,13 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
         tolerance_report(a, b, c, LSTM_DW_ATOL, LSTM_RTOL)
         for a, b, c in zip(got[1:], ref[1:], ref64[1:])]
     err = max(r["max"] for r in rep)
+    # the weight-gradient sum runs in a fixed order: a second launch on the
+    # same input gives the same bits (the resumed train step relies on it)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     # d xw1 per entry; the weight gradients, sums over T x L rows, against
     # their largest entry (see the module docstring)
     ok = (fwd_err <= KERNEL_ATOL and rep[0]["ratio"] <= 1.0
-          and all(r["normwise"] <= 1.0 for r in rep[1:]))
+          and all(r["normwise"] <= 1.0 for r in rep[1:]) and same)
     say(f"lstm_bf bwd T={t} L={lanes}: training forward max|kernel-plain| "
         f"{fwd_err:.3e}; backward (dxw1, dw_hh1, dw_ih2, dw_hh2, db2): "
         f"max|kernel-plain| {fmt(rep, 'max')}, per-entry tolerance ratio "
@@ -300,7 +311,8 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
         f"{fmt(rep, 'out')}, largest-entry ratio "
         f"{fmt(rep, 'normwise', '%.3f')} (dx atol {LSTM_DX_ATOL:g}, "
         f"weights {LSTM_DW_ATOL:g}, rtol {LSTM_RTOL:g}); max|kernel-f64| "
-        f"{fmt(rep, 'k64')}, max|plain-f64| {fmt(rep, 'p64')}")
+        f"{fmt(rep, 'k64')}, max|plain-f64| {fmt(rep, 'p64')}; a second "
+        f"launch gives {'the same bits' if same else 'OTHER BITS'}")
     lstm = torch.nn.LSTM(64, 64, num_layers=2).cuda()
     with torch.no_grad():
         for i, r in enumerate((r1, r2)):
@@ -319,7 +331,16 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
             torch.autograd.backward(lib_out, dy, retain_graph=True)
 
         ms = cuda_ms(lambda: K._launch_bwd(xw1, dy, *states, *w), reps=5)
+        # each of the three launches alone, on the buffers of a full run
+        bufs = K._bwd_buffers(xw1)
+        K._launch_bwd(xw1, dy, *states, *w, bufs=bufs)
+        split = {name: cuda_ms(lambda st=st: K._launch_bwd(
+            xw1, dy, *states, *w, stages=st, bufs=bufs), reps=5)
+            for name, st in (("walk", K.BWD_WALK), ("wgrad", K.BWD_WGRAD),
+                             ("sum", K.BWD_SUM))}
+        del bufs
         fwd_ms = cuda_ms(lambda: K._launch_fwd(xw1, *w, states=True), reps=5)
+        library_fwd = cuda_ms(lambda: lstm(xg), reps=5)
         plain = cuda_ms(lambda: K.double_lstm_bwd_reference(
             xw1, dy, *states, *w), reps=1, warmup=1)
         library = cuda_ms(lib_bwd, reps=5)
@@ -333,20 +354,29 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     nbytes = 4.0 * (rows * (256 + 64 + 4 * 64 + 256) + 2 * (3 * 64 * 256
                                                              + 256))
     bms, by = bound_ms(flops, nbytes)
+    # the same work with every product on the tensor cores as three TF32
+    # products (the split that keeps float32's precision)
+    tc_bms = max(3 * flops / TF32_PEAK, nbytes / MEM_RATE) * 1e3
     # the training forward: the forward's products, xw1 in, 4 states out
     fwd_bms, fwd_by = bound_ms(2.0 * 3 * 64 * 256 * rows,
                                4.0 * (rows * (256 + 4 * 64) + 3 * 64 * 256
                                       + 256))
     say(f"lstm_bf T={t} L={lanes}: training forward {fwd_ms:.4f} ms, bound "
-        f"{fwd_bms:.4f} ms ({fwd_by})")
+        f"{fwd_bms:.4f} ms ({fwd_by}), cuDNN LSTM forward with grad "
+        f"{library_fwd:.4f} ms")
+    say(f"lstm_bf bwd T={t} L={lanes}: split by launch: reverse-time walk "
+        f"{split['walk']:.4f} ms, weight-gradient partials "
+        f"{split['wgrad']:.4f} ms, their sum {split['sum']:.4f} ms")
     say(f"lstm_bf bwd T={t} L={lanes}: kernel {ms:.4f} ms (training "
         f"forward {fwd_ms:.4f} ms), plain {plain:.4f} ms, cuDNN LSTM "
         f"backward {library:.4f} ms (forward + backward {library_fb:.4f} ms "
         f"vs the port's {fwd_ms + ms:.4f} ms), bound {bms:.4f} ms ({by}; "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), bound on the "
+        f"tensor cores (3 x TF32) {tc_bms:.4f} ms")
     return dict(err=err, ok=ok, ms=ms, fwd_ms=fwd_ms, plain_ms=plain,
                 library_ms=library, library_fb_ms=library_fb,
-                bound_ms=bms, bound_by=by)
+                library_fwd_ms=library_fwd, split_ms=split,
+                bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms)
 
 
 def tcm_bwd_case(group, b: int, t: int, seed: int):
@@ -784,6 +814,13 @@ def main() -> int:
         require(not bad, f"every kernel within {KERNEL_ATOL:g} of its plain "
                 f"version (outside: {bad})")
 
+    # serving runs with torch's default flags (cuDNN's TF32 on, matmul's
+    # off), as a user's process has them: the Enhancer must turn TF32 off
+    # for its own convolutions and leave the flags as it found them
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    default_flags = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
     with Phase("slice"):
         enh = load_enhancer(EXP, device="cuda")
         _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
@@ -842,8 +879,13 @@ def main() -> int:
             f"{wall * 1e3:.2f} ms (min of {['%.2f' % (w * 1e3) for w in walls]}"
             f" ms), real-time factor {wall / audio_s:.5f}, on {smi}")
 
+        require((torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) == default_flags,
+                "the Enhancer left torch's TF32 flags as it found them")
+
     with Phase("profile"):
         profile_run(lambda: enh.enhance_batch(noisy))
+    torch.backends.cudnn.allow_tf32 = False
 
     with Phase("backward"):
         # the train phase, part 1: the backward kernels against their
@@ -909,7 +951,9 @@ def main() -> int:
          "ms": bwd["lstm_7"]["ms"], "plain_ms": bwd["lstm_7"]["plain_ms"],
          "bound_ms": bwd["lstm_7"]["bound_ms"],
          "bound_by": bwd["lstm_7"]["bound_by"],
-         "library_ms": bwd["lstm_7"]["library_ms"]},
+         "library_ms": bwd["lstm_7"]["library_ms"],
+         "split_ms": bwd["lstm_7"]["split_ms"],
+         "tc_bound_ms": bwd["lstm_7"]["tc_bound_ms"]},
         {"name": "tcm_chain_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:187",

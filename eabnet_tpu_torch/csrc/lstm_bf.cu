@@ -30,6 +30,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int H = 64;
@@ -174,33 +176,162 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
 
 // ---------------------------------------------------------------- backward
 //
-// Replaces eabnet_tpu/kernels/lstm_bf.py::_bwd_kernel. One block of 256
-// threads owns LB lanes and walks t = T-1 .. 0, carrying (dh1, dc1, dh2,
-// dc2) per lane. Per step, from the saved states at t and t-1 (zero before
-// t = 0) it recomputes gates2 = h1[t] @ W_ih2 + h2[t-1] @ W_hh2 + b2, takes
-// the layer-2 cell backward, forms dh2' = dgates2 @ W_hh2^T and the layer-1
-// cotangent dh1 + dgates2 @ W_ih2^T, recomputes gates1 = xw1[t] + h1[t-1] @
-// W_hh1, takes the layer-1 cell backward and forms dh1' = dgates1 @ W_hh1^T.
-// It writes dgates1 (= d xw1) and dgates2 to global memory.
+// Replaces eabnet_tpu/kernels/lstm_bf.py::_bwd_kernel (pallas_call at
+// :289). Three launches: a reverse-time walk that writes d xw1 (= dgates1)
+// and dgates2, a tensor-core GEMM that sums the weight gradients over the
+// T*L rows into per-chunk partials, and a sum of those partials in chunk
+// order (no atomics, so a launch repeats its bits).
 //
-// The three weight matrices take 192 KB of shared memory, so the weight-
-// gradient sums (3 x 64 x 256 f32) fit neither there nor in registers: a
-// second kernel reduces sum_{t,l} h^T dgates over all T*L rows into per-
-// block partials, and a third sums the partials in a fixed order, so the
-// result does not change from run to run (no atomics).
+// What bounds it on this card. Per lane-step there are nine 64 x 256
+// products: three recompute the gates (gates2 = [h1[t] | h2[t-1]] @
+// [W_ih2; W_hh2] + b2, gates1 = xw1[t] + h1[t-1] @ W_hh1), three carry the
+// cotangent back (dgates2 @ W_hh2^T, dgates2 @ W_ih2^T, dgates1 @
+// W_hh1^T) and three are the weight gradients: 199.75 GFLOP at T = 601,
+// L = 1,127, 2.98 ms at the float32 rate, 1.21 ms as three TF32 tensor-core
+// products. The stream is 2.25 GB (0.67 ms). The walk is also a chain of
+// T dependent steps, each of four dependent phases, so its latency per
+// step, not a roofline, sets its time when few lanes share an SM.
 //
-// Products with W^T read W[u][j] for 32 different u in one warp; the index
-// j is rotated by u, (j0 + u) mod 256, so those reads fall in 32 different
-// banks while the forward-direction products keep the forward's layout.
+// The walk. A block owns LB <= 9 lanes (taken from the SM count, so 1,127
+// lanes fill 126 SMs; up to 8 lanes take the narrow walk further down,
+// which swaps the operands) as the rows of one 16-row tile, and runs all
+// six per-step products on the tensor cores as mma.sync m16n8k8 TF32 with
+// the 3xTF32 split (a = a_hi + a_lo; a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// which keeps float32's precision; one TF32 product keeps ~3 digits). The
+// three weight matrices stay in shared memory (192 KB), each row's columns
+// XOR-swizzled in groups of 8 by (u ^ u >> 2) & 3, so that the gates
+// products (scalar loads down a column) and the transposed products
+// (float2 loads along a row) read their fragments without bank conflicts.
+// Warp w owns hidden units 8w .. 8w+7: its gates tiles are the columns
+// {64q + 8w}, q = i, f, g, o, so each thread holds all four gates of its
+// (lane, unit) pairs in registers and takes both cell backwards there, with
+// the carried (dh, dc) in registers too; its transposed-product tiles are
+// the same units, which land in the same registers. Only dgates passes
+// through shared memory (it is the next product's A operand). The long
+// transposed products (K = 256) keep 4-8 independent accumulators per tile
+// so no single chain runs 256 deep. The gates of step t-1 do not depend on
+// the carried cotangent, so they are computed at the end of step t beside
+// its last product, and their layer-2 cell right after: two barriers per
+// step. h1[t-1], h2[t-2] and h1[t-2] arrive by cp.async into a double
+// buffer a step ahead; xw1, dy and the cell states of the next step are
+// loaded into registers a step ahead. The cell math stays float32 with the
+// precise tanhf (the sigmoid as 1/2 + tanh(x/2)/2, with no division).
 //
-// What bounds it: per lane-step 3 x 16K multiply-adds to recompute the
-// gates, 3 x 16K for the cotangent products and 3 x 16K for the weight
-// gradients, ~295 KFLOP, on 3.3 KB of stream (xw1, dy, four states in,
-// d xw1 out): the f32 rate, ~3 ms at T = 601, L = 1,127. As in the
-// forward, T dependent steps set a latency floor besides.
+// What holds the walk back now: per step and SM it issues 4,608 mma.sync
+// (mma.sync does not reach the card's TF32 peak, which needs wgmma and
+// 64-row tiles) and reads ~390 KB of weight fragments and ~200 KB of A
+// fragments from shared memory (at 128 B per clock, ~4,600 clocks), with
+// only 8 warps to overlap the two; and 7 of the 16 tile rows are idle at
+// LB = 9. Splitting the A tiles once into hi and lo words in shared memory
+// (fewer ALU instructions, twice the A loads) was measured slower, so each
+// warp splits its own fragments.
+//
+// The weight gradients: dW_hh1 = h1[t-1]^T dgates1 and [dW_ih2; dW_hh2] =
+// [h1[t] | h2[t-1]]^T dgates2, one K = 128 product, so dgates2 is read
+// once; db2 = the column sums of dgates2, taken from the same tiles. Both
+// are 3xTF32 mma.sync GEMMs over a chunk of rows per block, their tiles
+// staged by a 4-deep cp.async ring of 32-row stages, rows padded to 8 mod
+// 32 floats.
 
-template <int LB>
-__global__ void __launch_bounds__(G)
+// x = hi + lo for the 3xTF32 split. hi is x rounded to TF32 (10 mantissa
+// bits, to nearest, ties away from zero: cvt.rna.tf32.f32's rounding, done
+// here with an integer add and mask, as cvt issues through the slower
+// conversion unit); lo = x - hi is exact in float32 and goes in as it is:
+// the tensor cores read the top 19 bits of a TF32 operand, which truncates
+// lo.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the small cross terms first, a_lo b_lo dropped
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
+                                     const uint32_t* al, const uint32_t* bh,
+                                     const uint32_t* bl) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+__device__ __forceinline__ void split4(const float* v, uint32_t* hi,
+                                       uint32_t* lo) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_LB_MAX = 9;  // lanes per block that fit beside the weights
+constexpr int SH = 3 * H + 8;  // h tile row: h1[t] | h2[t-1] | h1[t-1]
+constexpr int SD = G + 8;      // dgates tile row
+
+// index of W[u][j] in a swizzled [H][G] copy
+__device__ __forceinline__ int wsw(int u, int j) {
+  return u * G + (j ^ (((u ^ (u >> 2)) & 3) << 3));
+}
+
+size_t bwd_smem_bytes(int lb) {
+  return sizeof(float) * (3 * H * G + lb * (2 * SH + 2 * SD));
+}
+
+__device__ __forceinline__ float2 ld2(const float* p, bool ok) {
+  return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+}
+
+// The backward's sigmoid, 1/2 + tanh(x/2)/2 with the precise tanhf: the
+// same function as sigm to float32 rounding, without a division, whose
+// slow path (a call) would cut the cell math into pieces that the
+// scheduler cannot interleave with the tensor-core products around it.
+__device__ __forceinline__ float sigm_t(float x) {
+  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
+}
+
+// One LSTM cell backward: gates (i, f, g, o pre-activations) in, the
+// gates' cotangents out (in place); returns dc_prev.
+__device__ __forceinline__ float cell_bwd(float* gt, float dh, float dc,
+                                          float c_t, float c_p) {
+  const float si = sigm_t(gt[0]), sf = sigm_t(gt[1]);
+  const float sg = tanhf(gt[2]), so = sigm_t(gt[3]);
+  const float tc = tanhf(c_t);
+  const float dct = dc + dh * so * (1.0f - tc * tc);
+  gt[0] = dct * sg * si * (1.0f - si);
+  gt[1] = dct * c_p * sf * (1.0f - sf);
+  gt[2] = dct * si * (1.0f - sg * sg);
+  gt[3] = dh * tc * so * (1.0f - so);
+  return dct * sf;
+}
+
+// The per-step values a thread reads from global memory, for its rows
+// (g, g + 8) and units (u0, u0 + 1): xw1 per gate, dy, and c1, c2 at t-1.
+struct StepIn {
+  float2 x[4][2], dy[2], c1p[2], c2p[2];
+};
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
                    const float* __restrict__ h1s, const float* __restrict__ c1s,
                    const float* __restrict__ h2s, const float* __restrict__ c2s,
@@ -209,264 +340,722 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
                    const float* __restrict__ w_hh2,
                    const float* __restrict__ b2,
                    float* __restrict__ dxw1, float* __restrict__ dg2_out,
-                   int T, int L) {
+                   int T, int L, int LB) {
   extern __shared__ float4 smem4[];
-  float* s_w1 = reinterpret_cast<float*>(smem4);  // W_hh1 [H][G]
-  float* s_wi2 = s_w1 + H * G;                    // W_ih2 [H][G]
-  float* s_wh2 = s_wi2 + H * G;                   // W_hh2 [H][G]
-  float* s_ha = s_wh2 + H * G;                    // [LB][2H] h1[t] | h2[t-1], then h1[t-1]
-  float* s_dh1 = s_ha + LB * 2 * H;               // [LB][H] carried dh1
-  float* s_dh2 = s_dh1 + LB * H;                  // [LB][H] carried dh2
-  float* s_g = s_dh2 + LB * H;                    // [LB][G] gates, then dgates
+  float* s_w1 = reinterpret_cast<float*>(smem4);  // W_hh1, swizzled
+  float* s_wi2 = s_w1 + H * G;                    // W_ih2, swizzled
+  float* s_wh2 = s_wi2 + H * G;                   // W_hh2, swizzled
+  float* s_h = s_wh2 + H * G;                     // [2][LB][SH]
+  float* s_dg2 = s_h + 2 * LB * SH;               // [LB][SD]
+  float* s_dg1 = s_dg2 + LB * SD;                 // [LB][SD]
 
-  const int j = threadIdx.x;
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
+            tq = tid & 3;
   const int lane0 = blockIdx.x * LB;
-  for (int i = j; i < H * G; i += G) {
-    s_w1[i] = w_hh1[i];
-    s_wi2[i] = w_ih2[i];
-    s_wh2[i] = w_hh2[i];
+  const int u0 = 8 * w + 2 * tq;  // this thread's units u0, u0 + 1
+  // this thread's rows g and g + 8: inside the block and inside L
+  bool rin[2], rok[2];
+  size_t rl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    rin[rr] = g + 8 * rr < LB;
+    rok[rr] = rin[rr] && lane0 + g + 8 * rr < L;
+    rl[rr] = static_cast<size_t>(lane0 + g + 8 * rr);
   }
-  for (int i = j; i < LB * H; i += G) s_dh1[i] = s_dh2[i] = 0.0f;
-  const float bj = b2[j];
 
-  constexpr int PAIRS = (LB * H + G - 1) / G;
-  float dc1[PAIRS], dc2[PAIRS];
+  // Fragment offsets, so that every shared load in the loops below is a
+  // register plus a constant. A: row g, column 2 tq of a tile. B of the
+  // gates products: W[8 a + 2 tq + e][64 q + 8 w + g] = wm[gb[e][a & 1] +
+  // 8 a G + 64 q] (the swizzle of row u = 8 a + 2 tq + e depends on a only
+  // through a & 1). B of the transposed products: W[8 w + g][8 kk + 2 tq,
+  // + 1] = wm[tb[kk & 3] + 32 (kk >> 2)], a float2.
+  const int a_off = g * SH + 2 * tq, d_off = g * SD + 2 * tq;
+  int gb[2][2], tb[4];
 #pragma unroll
-  for (int r = 0; r < PAIRS; ++r) dc1[r] = dc2[r] = 0.0f;
-  // transposed products: thread -> (unit tu, lanes tl0, tl0 + 4, ...)
-  const int tu = j % H, tl0 = j / H;
-  __syncthreads();
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      gb[e][a] = wsw(8 * a + 2 * tq + e, 8 * w + g) - 8 * a * G;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) tb[m] = wsw(8 * w + g, 8 * m + 2 * tq);
 
+  // A fragment of a 16-row tile in shared memory (rows past LB are zero):
+  // p points at row g, k = 8 kk + 2 tq, the mma's k slots tq and tq + 4
+  // permuted alike in A and B so that both are one float2
+  auto load_a = [&](const float* p, int stride, uint32_t* ah, uint32_t* al) {
+    const float2 lo = ld2(p, rin[0]), hi = ld2(p + 8 * stride, rin[1]);
+    split_tf32(lo.x, ah[0], al[0]);
+    split_tf32(lo.y, ah[2], al[2]);
+    split_tf32(hi.x, ah[1], al[1]);
+    split_tf32(hi.y, ah[3], al[3]);
+  };
+
+  for (int i = tid; i < H * G / 4; i += BWD_THREADS) {
+    const int u = i / (G / 4), j = (i % (G / 4)) * 4;
+    const int p = wsw(u, j);  // the swizzle moves groups of 8: float4 stays
+    *reinterpret_cast<float4*>(s_w1 + p) =
+        reinterpret_cast<const float4*>(w_hh1)[i];
+    *reinterpret_cast<float4*>(s_wi2 + p) =
+        reinterpret_cast<const float4*>(w_ih2)[i];
+    *reinterpret_cast<float4*>(s_wh2 + p) =
+        reinterpret_cast<const float4*>(w_hh2)[i];
+  }
+
+  // h tile of step s: h1[s] | h2[s-1] | h1[s-1], zero outside [0, T) x L
+  auto load_h = [&](int s, float* dst) {
+    for (int i = tid; i < LB * (3 * H / 4); i += BWD_THREADS) {
+      const int r = i / (3 * H / 4), c = (i % (3 * H / 4)) * 4;
+      const int part = c / H, ts = part == 0 ? s : s - 1;
+      const bool ok = lane0 + r < L && ts >= 0;
+      const float* src = (part == 1 ? h2s : h1s) +
+          (ok ? (static_cast<size_t>(ts) * L + lane0 + r) * H + c % H : 0);
+      cp_async16(dst + r * SH + c, src, ok);
+    }
+    cp_async_commit();
+  };
+  auto load_in = [&](int s, StepIn& in) {
+    const bool has_p = s > 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const size_t o = (static_cast<size_t>(s) * L + rl[rr]);
+      const size_t op = (static_cast<size_t>(has_p ? s - 1 : 0) * L + rl[rr]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        in.x[q][rr] = ld2(xw1 + o * G + q * H + u0, rok[rr]);
+      in.dy[rr] = ld2(dy + o * H + u0, rok[rr]);
+      in.c1p[rr] = ld2(c1s + op * H + u0, rok[rr] && has_p);
+      in.c2p[rr] = ld2(c2s + op * H + u0, rok[rr] && has_p);
+    }
+  };
+
+  float bq[4][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    bq[q][0] = b2[q * H + u0];
+    bq[q][1] = b2[q * H + u0 + 1];
+  }
+  // gates2 = [h1[s] | h2[s-1]] @ [W_ih2; W_hh2] + b2 (K = 128) and gates1 =
+  // xw1[s] + h1[s-1] @ W_hh1 (K = 64) of step s from its h tile sh; tile q
+  // = gate q, columns 64 q + 8 w .. + 7
+  auto gates = [&](const float* sh, const StepIn& in, float (*a2)[4],
+                   float (*a1)[4]) {
+    auto kstep = [&](int kk, const float* wm, float (*acc)[4]) {
+      uint32_t ah[4], al[4];
+      load_a(sh + a_off + 8 * kk, SH, ah, al);
+      const float* wk = wm + (kk & 7) * 8 * G;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t bh[2], bl[2];
+        split_tf32(wk[gb[0][kk & 1] + q * H], bh[0], bl[0]);
+        split_tf32(wk[gb[1][kk & 1] + q * H], bh[1], bl[1]);
+        mma3(acc[q], ah, al, bh, bl);
+      }
+    };
+    float a2h[4][4];  // the h2[s-1] half on its own: shorter chains
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a2[q][0] = a2[q][2] = bq[q][0];
+      a2[q][1] = a2[q][3] = bq[q][1];
+      a1[q][0] = in.x[q][0].x;
+      a1[q][1] = in.x[q][0].y;
+      a1[q][2] = in.x[q][1].x;
+      a1[q][3] = in.x[q][1].y;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a2h[q][i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      kstep(kk, s_wi2, a2);
+      kstep(kk + 8, s_wh2, a2h);
+    }
+#pragma unroll
+    for (int kk = 16; kk < 24; ++kk) kstep(kk, s_w1, a1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a2[q][i] += a2h[q][i];
+  };
+
+  // carried per (row rr, unit e) at index 2 rr + e, the mma C layout
+  float dh1c[4] = {0.f, 0.f, 0.f, 0.f}, dh2c[4] = {0.f, 0.f, 0.f, 0.f};
+  float dc1[4] = {0.f, 0.f, 0.f, 0.f}, dc2[4] = {0.f, 0.f, 0.f, 0.f};
+  float c1t[4], c2t[4], a2[4][4], a1[4][4];
+  StepIn cur, nxt;
+  load_h(T - 1, s_h + ((T - 1) & 1) * LB * SH);
+  load_in(T - 1, cur);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const size_t o = (static_cast<size_t>(T - 1) * L + rl[rr]) * H + u0;
+    const float2 a = ld2(c1s + o, rok[rr]), b = ld2(c2s + o, rok[rr]);
+    c1t[2 * rr] = a.x;
+    c1t[2 * rr + 1] = a.y;
+    c2t[2 * rr] = b.x;
+    c2t[2 * rr + 1] = b.y;
+  }
+  // layer-2 cell backward of step s on its gates a2: dgates2 to shared and
+  // (when store) global memory
+  auto cell2 = [&](int s, const StepIn& in, bool store) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float dyv[2] = {in.dy[rr].x, in.dy[rr].y};
+      const float cp[2] = {in.c2p[rr].x, in.c2p[rr].y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * rr + e;
+        float gt[4] = {a2[0][i], a2[1][i], a2[2][i], a2[3][i]};
+        dc2[i] = cell_bwd(gt, dyv[e] + dh2c[i], dc2[i], c2t[i], cp[e]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a2[q][i] = gt[q];
+      }
+      if (rin[rr] && store) {
+        const size_t o = (static_cast<size_t>(s) * L + rl[rr]) * G + u0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = make_float2(a2[q][2 * rr], a2[q][2 * rr + 1]);
+          *reinterpret_cast<float2*>(s_dg2 + (g + 8 * rr) * SD + q * H +
+                                     u0) = v;
+          if (rok[rr]) *reinterpret_cast<float2*>(dg2_out + o + q * H) = v;
+        }
+      }
+    }
+  };
+  cp_async_wait<0>();
+  __syncthreads();  // the weights and the h tile of T-1 are in
+  gates(s_h + ((T - 1) & 1) * LB * SH, cur, a2, a1);
+  cell2(T - 1, cur, true);
+
+  // Step t starts from dgates2 of t, which step t+1 left in shared memory:
+  // its last phase computes the serial chain's last product (dh1'), the
+  // gates of t and their layer-2 cell backward, independent work that the
+  // scheduler can interleave; two barriers per step.
   for (int t = T - 1; t >= 0; --t) {
-    const size_t row_t = static_cast<size_t>(t) * L;
-    const size_t row_p = static_cast<size_t>(t - 1) * L;  // unused at t = 0
-    // ---- h1[t], h2[t-1] of the block's lanes
-    for (int i = j; i < LB * 2 * H; i += G) {
-      const int l = i / (2 * H), k = i % (2 * H), lane = lane0 + l;
-      float v = 0.0f;
-      if (lane < L) {
-        if (k < H) v = h1s[(row_t + lane) * H + k];
-        else if (t > 0) v = h2s[(row_p + lane) * H + k - H];
-      }
-      s_ha[i] = v;
+    if (t > 0) {
+      load_h(t - 1, s_h + ((t - 1) & 1) * LB * SH);
+      load_in(t - 1, nxt);
     }
-    __syncthreads();
-    // ---- gates2 = [h1[t], h2[t-1]] @ [W_ih2; W_hh2] + b2
+    __syncthreads();  // dgates2 of t is in
+
+    // ---- dh2' = dgates2 @ W_hh2^T, dh1 += dgates2 @ W_ih2^T (K = 256),
+    //      units 8 w .. + 7; B[k = j][n = u] = W[u][j], a float2 along j
     {
-      float acc[LB];
+      float acc[2][4][4];
 #pragma unroll
-      for (int l = 0; l < LB; ++l) acc[l] = bj;
-      for (int half = 0; half < 2; ++half) {
-        const float* w = half ? s_wh2 : s_wi2;
-        for (int k = 0; k < H; k += 4) {
-          const float wa = w[(k + 0) * G + j], wb = w[(k + 1) * G + j];
-          const float wc = w[(k + 2) * G + j], wd = w[(k + 3) * G + j];
+      for (int p = 0; p < 2; ++p)
 #pragma unroll
-          for (int l = 0; l < LB; ++l) {
-            const float4 h = *reinterpret_cast<const float4*>(
-                &s_ha[l * 2 * H + half * H + k]);
-            acc[l] += h.x * wa;
-            acc[l] += h.y * wb;
-            acc[l] += h.z * wc;
-            acc[l] += h.w * wd;
-          }
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[p][s][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        uint32_t ah[4], al[4];
+        load_a(s_dg2 + d_off + 8 * kk, SD, ah, al);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float* wm = p ? s_wi2 : s_wh2;
+          const float2 b = *reinterpret_cast<const float2*>(
+              wm + tb[kk & 3] + 32 * (kk >> 2));
+          uint32_t bh[2], bl[2];
+          split_tf32(b.x, bh[0], bl[0]);
+          split_tf32(b.y, bh[1], bl[1]);
+          mma3(acc[p][kk & 3], ah, al, bh, bl);
         }
       }
 #pragma unroll
-      for (int l = 0; l < LB; ++l) s_g[l * G + j] = acc[l];
+      for (int i = 0; i < 4; ++i) {
+        dh2c[i] = (acc[0][0][i] + acc[0][1][i]) +
+                  (acc[0][2][i] + acc[0][3][i]);
+        dh1c[i] += (acc[1][0][i] + acc[1][1][i]) +
+                   (acc[1][2][i] + acc[1][3][i]);
+      }
     }
-    __syncthreads();
-    // ---- layer-2 cell backward (dgates2 in place of gates2)
+
+    // ---- layer-1 cell backward: dgates1 = d xw1[t]
 #pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const int q = j + r * G;
-      if (q < LB * H) {
-        const int l = q / H, u = q % H, lane = lane0 + l;
-        float* g = s_g + l * G;
-        float dh = s_dh2[q], c_t = 0.0f, c_p = 0.0f;
-        if (lane < L) {
-          dh += dy[(row_t + lane) * H + u];
-          c_t = c2s[(row_t + lane) * H + u];
-          if (t > 0) c_p = c2s[(row_p + lane) * H + u];
+    for (int rr = 0; rr < 2; ++rr) {
+      const float cp[2] = {cur.c1p[rr].x, cur.c1p[rr].y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * rr + e;
+        float gt[4] = {a1[0][i], a1[1][i], a1[2][i], a1[3][i]};
+        dc1[i] = cell_bwd(gt, dh1c[i], dc1[i], c1t[i], cp[e]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a1[q][i] = gt[q];
+      }
+      if (rin[rr]) {
+        const size_t o = (static_cast<size_t>(t) * L + rl[rr]) * G + u0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v = make_float2(a1[q][2 * rr], a1[q][2 * rr + 1]);
+          *reinterpret_cast<float2*>(s_dg1 + (g + 8 * rr) * SD + q * H +
+                                     u0) = v;
+          if (rok[rr]) *reinterpret_cast<float2*>(dxw1 + o + q * H) = v;
         }
-        const float si = sigm(g[u]), sf = sigm(g[H + u]);
-        const float sg = tanhf(g[2 * H + u]), so = sigm(g[3 * H + u]);
-        const float tc = tanhf(c_t);
-        const float dct = dc2[r] + dh * so * (1.0f - tc * tc);
-        g[3 * H + u] = dh * tc * so * (1.0f - so);
-        g[H + u] = dct * c_p * sf * (1.0f - sf);
-        g[u] = dct * sg * si * (1.0f - si);
-        g[2 * H + u] = dct * si * (1.0f - sg * sg);
-        dc2[r] = dct * sf;
       }
     }
-    __syncthreads();
-    // ---- dh2' = dgates2 @ W_hh2^T; dh1 += dgates2 @ W_ih2^T; store dgates2
-    for (int l = tl0; l < LB; l += G / H) {
-      const float* dg = s_g + l * G;
-      float a2 = 0.0f, a1 = 0.0f;
-      for (int j0 = 0; j0 < G; ++j0) {
-        const int jj = (j0 + tu) & (G - 1);
-        const float d = dg[jj];
-        a2 += d * s_wh2[tu * G + jj];
-        a1 += d * s_wi2[tu * G + jj];
-      }
-      s_dh2[l * H + tu] = a2;
-      s_dh1[l * H + tu] += a1;
-    }
-#pragma unroll
-    for (int l = 0; l < LB; ++l) {
-      const int lane = lane0 + l;
-      if (lane < L) dg2_out[(row_t + lane) * G + j] = s_g[l * G + j];
-    }
-    // ---- h1[t-1] for gates1 (the buffer's h1[t] half is free now)
-    for (int i = j; i < LB * H; i += G) {
-      const int l = i / H, k = i % H, lane = lane0 + l;
-      s_ha[l * 2 * H + H + k] =
-          (lane < L && t > 0) ? h1s[(row_p + lane) * H + k] : 0.0f;
-    }
-    __syncthreads();
-    // ---- gates1 = xw1[t] + h1[t-1] @ W_hh1
+    cp_async_wait<0>();
+    __syncthreads();  // dgates1 and the h tile of t-1 are in
+
+    // ---- dh1' = dgates1 @ W_hh1^T (K = 256), eight accumulators
     {
-      float acc[LB];
+      float acc[8][4];
 #pragma unroll
-      for (int l = 0; l < LB; ++l) {
-        const int lane = lane0 + l;
-        acc[l] = lane < L ? xw1[(row_t + lane) * G + j] : 0.0f;
-      }
-      for (int k = 0; k < H; k += 4) {
-        const float wa = s_w1[(k + 0) * G + j], wb = s_w1[(k + 1) * G + j];
-        const float wc = s_w1[(k + 2) * G + j], wd = s_w1[(k + 3) * G + j];
+      for (int s = 0; s < 8; ++s)
 #pragma unroll
-        for (int l = 0; l < LB; ++l) {
-          const float4 h = *reinterpret_cast<const float4*>(
-              &s_ha[l * 2 * H + H + k]);
-          acc[l] += h.x * wa;
-          acc[l] += h.y * wb;
-          acc[l] += h.z * wc;
-          acc[l] += h.w * wd;
-        }
+        for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        uint32_t ah[4], al[4];
+        load_a(s_dg1 + d_off + 8 * kk, SD, ah, al);
+        const float2 b = *reinterpret_cast<const float2*>(
+            s_w1 + tb[kk & 3] + 32 * (kk >> 2));
+        uint32_t bh[2], bl[2];
+        split_tf32(b.x, bh[0], bl[0]);
+        split_tf32(b.y, bh[1], bl[1]);
+        mma3(acc[kk & 7], ah, al, bh, bl);
       }
 #pragma unroll
-      for (int l = 0; l < LB; ++l) s_g[l * G + j] = acc[l];
+      for (int i = 0; i < 4; ++i)
+        dh1c[i] = ((acc[0][i] + acc[1][i]) + (acc[2][i] + acc[3][i])) +
+                  ((acc[4][i] + acc[5][i]) + (acc[6][i] + acc[7][i]));
     }
-    __syncthreads();
-    // ---- layer-1 cell backward (dgates1 in place of gates1)
+    // ---- step t-1 reads c[t-1] as its c_t; its gates and layer-2 cell
+    //      (at t = 0 of no step: nothing is stored)
 #pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const int q = j + r * G;
-      if (q < LB * H) {
-        const int l = q / H, u = q % H, lane = lane0 + l;
-        float* g = s_g + l * G;
-        const float dh = s_dh1[q];
-        float c_t = 0.0f, c_p = 0.0f;
-        if (lane < L) {
-          c_t = c1s[(row_t + lane) * H + u];
-          if (t > 0) c_p = c1s[(row_p + lane) * H + u];
-        }
-        const float si = sigm(g[u]), sf = sigm(g[H + u]);
-        const float sg = tanhf(g[2 * H + u]), so = sigm(g[3 * H + u]);
-        const float tc = tanhf(c_t);
-        const float dct = dc1[r] + dh * so * (1.0f - tc * tc);
-        g[3 * H + u] = dh * tc * so * (1.0f - so);
-        g[H + u] = dct * c_p * sf * (1.0f - sf);
-        g[u] = dct * sg * si * (1.0f - si);
-        g[2 * H + u] = dct * si * (1.0f - sg * sg);
-        dc1[r] = dct * sf;
-      }
+    for (int rr = 0; rr < 2; ++rr) {
+      c1t[2 * rr] = cur.c1p[rr].x;
+      c1t[2 * rr + 1] = cur.c1p[rr].y;
+      c2t[2 * rr] = cur.c2p[rr].x;
+      c2t[2 * rr + 1] = cur.c2p[rr].y;
     }
-    __syncthreads();
-    // ---- dh1' = dgates1 @ W_hh1^T; store dgates1 = d xw1[t]
-    for (int l = tl0; l < LB; l += G / H) {
-      const float* dg = s_g + l * G;
-      float a1 = 0.0f;
-      for (int j0 = 0; j0 < G; ++j0) {
-        const int jj = (j0 + tu) & (G - 1);
-        a1 += dg[jj] * s_w1[tu * G + jj];
-      }
-      s_dh1[l * H + tu] = a1;
-    }
-#pragma unroll
-    for (int l = 0; l < LB; ++l) {
-      const int lane = lane0 + l;
-      if (lane < L) dxw1[(row_t + lane) * G + j] = s_g[l * G + j];
-    }
-    __syncthreads();
+    gates(s_h + ((t - 1) & 1) * LB * SH, nxt, a2, a1);
+    cell2(t - 1, nxt, t > 0);
+    if (t > 0) cur = nxt;
   }
 }
 
-// Weight-gradient partials. blockIdx.y picks the product:
-//   0: dW_hh1 = sum h1[t-1]^T dgates1    1: dW_ih2 = sum h1[t]^T dgates2
-//   2: dW_hh2 = sum h2[t-1]^T dgates2    (1 also sums db2 = sum dgates2)
-// over the rows n = t * L + lane of a contiguous chunk per block; h[t-1] is
-// row n - L, zero for t = 0. Thread j owns column j of the (64, 256)
-// partial, 64 sums in registers; RW rows of h are staged in shared memory.
-constexpr int RW = 8;
+// The walk for LB <= 8 lanes (the narrow walk): the same steps with the
+// operands' roles
+// swapped, weights as the mma's 16-row A operand and the lanes as its
+// 8-column B operand, so that a block of few lanes does not pay for 16
+// rows: 336 mma.sync per warp and step instead of 576. Warp w owns unit
+// u = 8w + g of lanes 2 tq and 2 tq + 1. A gates tile holds two gates of
+// units 8w .. 8w+7 (rows 0-7: gate q0, rows 8-15: gate q1), so again each
+// thread ends with all four gates of its (lane, unit) pairs; a transposed
+// tile holds W_hh2's and W_ih2's rows of those units (dh2' and the dh1
+// term), or W_hh1's with 8 zero rows (dh1'). Weights and their swizzle,
+// fragment offsets, prefetch and barriers are the other walk's.
+struct NarrowIn {
+  float x[4][2], dy[2], c1p[2], c2p[2];  // [gate][pair], [pair]
+};
 
-__global__ void __launch_bounds__(G)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+lstm_bf_bwd_narrow_kernel(
+    const float* __restrict__ xw1, const float* __restrict__ dy,
+    const float* __restrict__ h1s, const float* __restrict__ c1s,
+    const float* __restrict__ h2s, const float* __restrict__ c2s,
+    const float* __restrict__ w_hh1, const float* __restrict__ w_ih2,
+    const float* __restrict__ w_hh2, const float* __restrict__ b2,
+    float* __restrict__ dxw1, float* __restrict__ dg2_out, int T, int L,
+    int LB) {
+  extern __shared__ float4 smem4[];
+  float* s_w1 = reinterpret_cast<float*>(smem4);  // W_hh1, swizzled
+  float* s_wi2 = s_w1 + H * G;                    // W_ih2, swizzled
+  float* s_wh2 = s_wi2 + H * G;                   // W_hh2, swizzled
+  float* s_h = s_wh2 + H * G;                     // [2][LB][SH]
+  float* s_dg2 = s_h + 2 * LB * SH;               // [LB][SD]
+  float* s_dg1 = s_dg2 + LB * SD;                 // [LB][SD]
+
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
+            tq = tid & 3;
+  const int lane0 = blockIdx.x * LB;
+  const int u = 8 * w + g;  // this thread's unit, lanes 2 tq + e
+  const bool bin = g < LB;  // the B operand's lane g is in the block
+  bool pin[2], pok[2];      // lane 2 tq + e in the block, in L
+  size_t pl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    pin[e] = 2 * tq + e < LB;
+    pok[e] = pin[e] && lane0 + 2 * tq + e < L;
+    pl[e] = static_cast<size_t>(lane0 + 2 * tq + e);
+  }
+
+  // fragment offsets as in the other walk: A of the gates products
+  // W[8 a + 2 tq + e][64 q + 8 w + g] = wm[gb[e][a & 1] + 8 a G + 64 q];
+  // A of the transposed products W[8 w + g][8 kk + 2 tq, + 1] =
+  // wm[tb[kk & 3] + 32 (kk >> 2)]; B at row (lane) g, column 2 tq
+  const int b_off = g * SH + 2 * tq, e_off = g * SD + 2 * tq;
+  int gb[2][2], tb[4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      gb[e][a] = wsw(8 * a + 2 * tq + e, 8 * w + g) - 8 * a * G;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) tb[m] = wsw(8 * w + g, 8 * m + 2 * tq);
+  auto load_b = [&](const float* p, uint32_t* bh, uint32_t* bl) {
+    const float2 v = ld2(p, bin);
+    split_tf32(v.x, bh[0], bl[0]);
+    split_tf32(v.y, bh[1], bl[1]);
+  };
+
+  for (int i = tid; i < H * G / 4; i += BWD_THREADS) {
+    const int r = i / (G / 4), j = (i % (G / 4)) * 4;
+    const int p = wsw(r, j);
+    *reinterpret_cast<float4*>(s_w1 + p) =
+        reinterpret_cast<const float4*>(w_hh1)[i];
+    *reinterpret_cast<float4*>(s_wi2 + p) =
+        reinterpret_cast<const float4*>(w_ih2)[i];
+    *reinterpret_cast<float4*>(s_wh2 + p) =
+        reinterpret_cast<const float4*>(w_hh2)[i];
+  }
+
+  auto load_h = [&](int s, float* dst) {
+    for (int i = tid; i < LB * (3 * H / 4); i += BWD_THREADS) {
+      const int r = i / (3 * H / 4), c = (i % (3 * H / 4)) * 4;
+      const int part = c / H, ts = part == 0 ? s : s - 1;
+      const bool ok = lane0 + r < L && ts >= 0;
+      const float* src = (part == 1 ? h2s : h1s) +
+          (ok ? (static_cast<size_t>(ts) * L + lane0 + r) * H + c % H : 0);
+      cp_async16(dst + r * SH + c, src, ok);
+    }
+    cp_async_commit();
+  };
+  auto ld1 = [](const float* p, bool ok) { return ok ? *p : 0.f; };
+  auto load_in = [&](int s, NarrowIn& in) {
+    const bool has_p = s > 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const size_t o = static_cast<size_t>(s) * L + pl[e];
+      const size_t op = static_cast<size_t>(has_p ? s - 1 : 0) * L + pl[e];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        in.x[q][e] = ld1(xw1 + o * G + q * H + u, pok[e]);
+      in.dy[e] = ld1(dy + o * H + u, pok[e]);
+      in.c1p[e] = ld1(c1s + op * H + u, pok[e] && has_p);
+      in.c2p[e] = ld1(c2s + op * H + u, pok[e] && has_p);
+    }
+  };
+
+  float bq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bq[q] = b2[q * H + u];
+  // gates of step s from its h tile: acc[p] is the tile of gates 2p, 2p+1;
+  // entry 2 r + e is gate 2 p + r of pair e
+  auto gates = [&](const float* sh, const NarrowIn& in, float (*a2)[4],
+                   float (*a1)[4]) {
+    auto kstep = [&](int kk, const float* wm, float (*acc)[4]) {
+      uint32_t bh[2], bl[2];
+      load_b(sh + b_off + 8 * kk, bh, bl);
+      const float* wk = wm + (kk & 7) * 8 * G;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float av[4] = {wk[gb[0][kk & 1] + 2 * p * H],
+                             wk[gb[0][kk & 1] + (2 * p + 1) * H],
+                             wk[gb[1][kk & 1] + 2 * p * H],
+                             wk[gb[1][kk & 1] + (2 * p + 1) * H]};
+        uint32_t ah[4], al[4];
+        split4(av, ah, al);
+        mma3(acc[p], ah, al, bh, bl);
+      }
+    };
+    float a2h[2][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          a2[p][2 * r + e] = bq[2 * p + r];
+          a1[p][2 * r + e] = in.x[2 * p + r][e];
+          a2h[p][2 * r + e] = 0.f;
+        }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      kstep(kk, s_wi2, a2);
+      kstep(kk + 8, s_wh2, a2h);
+    }
+#pragma unroll
+    for (int kk = 16; kk < 24; ++kk) kstep(kk, s_w1, a1);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a2[p][i] += a2h[p][i];
+  };
+
+  // carried per pair e
+  float dh1c[2] = {0.f, 0.f}, dh2c[2] = {0.f, 0.f};
+  float dc1[2] = {0.f, 0.f}, dc2[2] = {0.f, 0.f};
+  float c1t[2], c2t[2], a2[2][4], a1[2][4];
+  // a cell backward on gates a (layer 2 with dy, layer 1 without): dgates
+  // to the tile sd and (when store) to global memory at out, step s
+  auto cell = [&](float (*a)[4], float* dh, const float* dyv, float* dc,
+                  const float* ct, const float* cp, float* sd, float* out,
+                  int s, bool store) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float gt[4] = {a[0][e], a[0][2 + e], a[1][e], a[1][2 + e]};
+      dc[e] = cell_bwd(gt, dh[e] + (dyv ? dyv[e] : 0.f), dc[e], ct[e], cp[e]);
+      if (pin[e] && store) {
+        const size_t o = (static_cast<size_t>(s) * L + pl[e]) * G + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sd[(2 * tq + e) * SD + q * H + u] = gt[q];
+          if (pok[e]) out[o + q * H] = gt[q];
+        }
+      }
+    }
+  };
+
+  NarrowIn cur, nxt;
+  load_h(T - 1, s_h + ((T - 1) & 1) * LB * SH);
+  load_in(T - 1, cur);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const size_t o = (static_cast<size_t>(T - 1) * L + pl[e]) * H + u;
+    c1t[e] = ld1(c1s + o, pok[e]);
+    c2t[e] = ld1(c2s + o, pok[e]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the weights and the h tile of T-1 are in
+  gates(s_h + ((T - 1) & 1) * LB * SH, cur, a2, a1);
+  cell(a2, dh2c, cur.dy, dc2, c2t, cur.c2p, s_dg2, dg2_out, T - 1, true);
+
+  for (int t = T - 1; t >= 0; --t) {
+    if (t > 0) {
+      load_h(t - 1, s_h + ((t - 1) & 1) * LB * SH);
+      load_in(t - 1, nxt);
+    }
+    __syncthreads();  // dgates2 of t is in
+
+    // ---- [dh2' | dh1 term] = [W_hh2; W_ih2] rows of unit u @ dgates2^T
+    {
+      float acc[8][4];
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        uint32_t bh[2], bl[2];
+        load_b(s_dg2 + e_off + 8 * kk, bh, bl);
+        const int o = tb[kk & 3] + 32 * (kk >> 2);
+        const float2 w2 = *reinterpret_cast<const float2*>(s_wh2 + o);
+        const float2 wi = *reinterpret_cast<const float2*>(s_wi2 + o);
+        const float av[4] = {w2.x, wi.x, w2.y, wi.y};
+        uint32_t ah[4], al[4];
+        split4(av, ah, al);
+        mma3(acc[kk & 7], ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s2 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          s2 += acc[s][e];
+          s1 += acc[s][2 + e];
+        }
+        dh2c[e] = s2;
+        dh1c[e] += s1;
+      }
+    }
+
+    // ---- layer-1 cell backward: dgates1 = d xw1[t]
+    cell(a1, dh1c, nullptr, dc1, c1t, cur.c1p, s_dg1, dxw1, t, true);
+    cp_async_wait<0>();
+    __syncthreads();  // dgates1 and the h tile of t-1 are in
+
+    // ---- dh1' = W_hh1 rows of unit u @ dgates1^T (rows 8-15 zero)
+    {
+      float acc[8][4];
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) {
+        uint32_t bh[2], bl[2];
+        load_b(s_dg1 + e_off + 8 * kk, bh, bl);
+        const float2 w1 = *reinterpret_cast<const float2*>(
+            s_w1 + tb[kk & 3] + 32 * (kk >> 2));
+        const float av[4] = {w1.x, 0.f, w1.y, 0.f};
+        uint32_t ah[4], al[4];
+        split4(av, ah, al);
+        mma3(acc[kk & 7], ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s1 = 0.f;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) s1 += acc[s][e];
+        dh1c[e] = s1;
+      }
+    }
+
+    // ---- step t-1: c[t-1] as its c_t, its gates and layer-2 cell (at
+    //      t = 0 of no step: nothing is stored)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      c1t[e] = cur.c1p[e];
+      c2t[e] = cur.c2p[e];
+    }
+    gates(s_h + ((t - 1) & 1) * LB * SH, nxt, a2, a1);
+    cell(a2, dh2c, nxt.dy, dc2, c2t, nxt.c2p, s_dg2, dg2_out, t - 1, t > 0);
+    if (t > 0) cur = nxt;
+  }
+}
+
+// Weight-gradient partials on the tensor cores. blockIdx.y is the job:
+//   0: dW_hh1 = sum_n h1[n-L]^T dgates1[n]          (M = 64, N = 256)
+//   1, 2: [dW_ih2; dW_hh2] = sum_n [h1[n] | h2[n-L]]^T dgates2[n], columns
+//         128 (y-1) .. + 127, and db2 over those columns  (M = 128, N = 128)
+// over the rows n = t L + lane of chunk blockIdx.x (h[n-L] is zero for
+// t = 0). Each job's block is a 16,384-entry tile: 8 warps of 32 x 64.
+// Partials go to part[chunk] in dw's layout [dW_hh1, dW_ih2, dW_hh2, db2].
+constexpr int WG_BK = 32;     // rows per stage
+constexpr int WG_STAGES = 4;  // cp.async ring depth
+// a stage holds the larger job's A and B rows: (64 + 8) + (256 + 8) floats
+constexpr int WG_STAGE_FLOATS = WG_BK * (H + 8 + G + 8);
+constexpr int DW_FLOATS = 3 * H * G + G;
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
                      const float* __restrict__ h2s,
                      const float* __restrict__ dg1,
                      const float* __restrict__ dg2,
                      float* __restrict__ part, int T, int L) {
-  __shared__ float4 s_a4[RW * H / 4];
-  const float* s_a = reinterpret_cast<const float*>(s_a4);
-  const int j = threadIdx.x, which = blockIdx.y, nblk = gridDim.x;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
+            tq = tid & 3;
+  const int job = blockIdx.y;
+  const int MT = job ? 2 * H : H, NT = job ? G / 2 : G;
+  const int AS = MT + 8, BS = NT + 8;  // row strides, 8 mod 32 floats
+  const int col0 = job ? (job - 1) * (G / 2) : 0;
+  const float* bsrc = job ? dg2 : dg1;
+  const int wm = MT / 32;  // warps along M
+  const int m0 = (w % wm) * 32, n0 = (w / wm) * 64;
+
   const long long n_rows = static_cast<long long>(T) * L;
-  const long long per = (n_rows + nblk - 1) / nblk;
-  const long long n0 = per * blockIdx.x;
-  const long long n1 = n0 + per < n_rows ? n0 + per : n_rows;
-  const float* a = which == 2 ? h2s : h1s;
-  const float* b = which == 0 ? dg1 : dg2;
-  const long long shift = which == 1 ? 0 : L;
-  float acc[H];
-#pragma unroll
-  for (int u = 0; u < H; ++u) acc[u] = 0.0f;
-  float accb = 0.0f;
-  for (long long n = n0; n < n1; n += RW) {
-    __syncthreads();
-    for (int i = j; i < RW * H; i += G) {
-      const long long row = n + i / H, src = row - shift;
-      reinterpret_cast<float*>(s_a4)[i] =
-          (row < n1 && src >= 0) ? a[src * H + i % H] : 0.0f;
+  const long long per = (n_rows + gridDim.x - 1) / gridDim.x;
+  const long long r0 = per * blockIdx.x;
+  const long long r1 = r0 + per < n_rows ? r0 + per : n_rows;
+  const int nk = r1 > r0 ? static_cast<int>((r1 - r0 + WG_BK - 1) / WG_BK) : 0;
+
+  auto load = [&](int kt) {
+    float* as = ring + (kt % WG_STAGES) * WG_STAGE_FLOATS;
+    float* bs = as + WG_BK * AS;
+    const long long base = r0 + static_cast<long long>(kt) * WG_BK;
+    for (int i = tid; i < WG_BK * MT / 4; i += BWD_THREADS) {
+      const int r = i / (MT / 4), c = (i % (MT / 4)) * 4;
+      const long long n = base + r;
+      const float* src = h1s;
+      bool ok = n < r1;
+      long long row = n;
+      if (job == 0 || c >= H) {
+        row = n - L;
+        ok = ok && row >= 0;
+        if (job) src = h2s;
+      }
+      cp_async16(as + r * AS + c,
+                 src + (ok ? row * H + (c & (H - 1)) : 0), ok);
     }
-    __syncthreads();
+    for (int i = tid; i < WG_BK * NT / 4; i += BWD_THREADS) {
+      const int r = i / (NT / 4), c = (i % (NT / 4)) * 4;
+      const long long n = base + r;
+      const bool ok = n < r1;
+      cp_async16(bs + r * BS + c, bsrc + (ok ? n * G + col0 + c : 0), ok);
+    }
+  };
+
+  // the tensor cores' float32 sum truncates where an FADD rounds, so the
+  // mma accumulators take one stage (WG_BK rows) and are then added into
+  // float32 sums: the error does not grow with the chunk's length
+  float acc[2][8][4], sum[2][8][4];
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float bv = n + r < n1 ? b[(n + r) * G + j] : 0.0f;
-      accb += bv;
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int u = 0; u < H; u += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(&s_a[r * H + u]);
-        acc[u + 0] += av.x * bv;
-        acc[u + 1] += av.y * bv;
-        acc[u + 2] += av.z * bv;
-        acc[u + 3] += av.w * bv;
+    for (int b = 0; b < 8; ++b)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[a][b][i] = 0.f;
+  float accb = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // stage kt is in; stage kt - 1 is free
+    if (kt + WG_STAGES - 1 < nk) load(kt + WG_STAGES - 1);
+    cp_async_commit();
+    const float* as = ring + (kt % WG_STAGES) * WG_STAGE_FLOATS;
+    const float* bs = as + WG_BK * AS;
+    if (job && tid < NT) {  // db2: each stage's rows, then the sum
+      float st = 0.f;
+#pragma unroll
+      for (int r = 0; r < WG_BK; ++r) st += bs[r * BS + tid];
+      accb += st;
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[a][b][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < WG_BK / 8; ++ks) {
+      const float* ak = as + (ks * 8 + tq) * AS + m0 + g;
+      const float* bk = bs + (ks * 8 + tq) * BS + n0 + g;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float av[4] = {ak[mt * 16], ak[mt * 16 + 8],
+                             ak[4 * AS + mt * 16], ak[4 * AS + mt * 16 + 8]};
+        split4(av, ah[mt], al[mt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(bk[nt * 8], bh[0], bl[0]);
+        split_tf32(bk[4 * BS + nt * 8], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
       }
     }
-  }
-  // part layout: [3][nblk][H * G], then db2 partials [nblk][G]
-  float* out = part + (static_cast<size_t>(which) * nblk + blockIdx.x) * H * G;
 #pragma unroll
-  for (int u = 0; u < H; ++u) out[u * G + j] = acc[u];
-  if (which == 1)
-    part[static_cast<size_t>(3) * nblk * H * G + blockIdx.x * G + j] = accb;
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[a][b][i] += acc[a][b][i];
+  }
+  cp_async_wait<0>();
+
+  float* out = part + static_cast<size_t>(blockIdx.x) * DW_FLOATS;
+  const int row0 = job ? H : 0;  // [dW_ih2; dW_hh2] follow dW_hh1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int m = row0 + m0 + mt * 16 + g, n = col0 + n0 + nt * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(out + m * G + n) =
+          make_float2(sum[mt][nt][0], sum[mt][nt][1]);
+      *reinterpret_cast<float2*>(out + (m + 8) * G + n) =
+          make_float2(sum[mt][nt][2], sum[mt][nt][3]);
+    }
+  if (job && tid < NT) out[3 * H * G + col0 + tid] = accb;
 }
 
-// dw (3 * H * G + G) = the partials summed over blocks in block order.
+// dw = the partials summed over chunks in chunk order.
 __global__ void lstm_bf_wgrad_sum_kernel(const float* __restrict__ part,
-                                         float* __restrict__ dw, int nblk) {
+                                         float* __restrict__ dw, int nchunk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 3 * H * G + G) return;
+  if (i >= DW_FLOATS) return;
   float s = 0.0f;
-  if (i < 3 * H * G) {
-    const int which = i / (H * G), k = i % (H * G);
-    for (int b = 0; b < nblk; ++b)
-      s += part[(static_cast<size_t>(which) * nblk + b) * H * G + k];
-  } else {
-    for (int b = 0; b < nblk; ++b)
-      s += part[static_cast<size_t>(3) * nblk * H * G + b * G + (i - 3 * H * G)];
-  }
+  for (int c = 0; c < nchunk; ++c)
+    s += part[static_cast<size_t>(c) * DW_FLOATS + i];
   dw[i] = s;
 }
 
@@ -485,43 +1074,41 @@ cudaError_t launch_fwd(const float* xw1, const float* w_hh1, const float* w2,
   return cudaGetLastError();
 }
 
-template <int LB>
-cudaError_t launch_bwd(const float* xw1, const float* dy, const float* h1,
-                       const float* c1, const float* h2, const float* c2,
-                       const float* w_hh1, const float* w_ih2,
-                       const float* w_hh2, const float* b2, float* dxw1,
-                       float* dg2, int T, int L, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * H * G + LB * (4 * H + G));
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bf_bwd_kernel<LB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (L + LB - 1) / LB;
-  lstm_bf_bwd_kernel<LB><<<grid, G, smem, stream>>>(
-      xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L);
-  return cudaGetLastError();
-}
-
-// Lanes per block: the smallest power of two (at most 16) that keeps the
-// grid within one wave of SMs.
-cudaError_t lanes_per_block(int L, int* lb) {
-  int dev = 0, n_sm = 0;
+cudaError_t sm_count(int* n_sm) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Lanes per block of the forward: the smallest power of two (at most 16)
+// that keeps the grid within one wave of SMs.
+cudaError_t lanes_per_block(int L, int* lb) {
+  int n_sm = 0;
+  cudaError_t err = sm_count(&n_sm);
   if (err != cudaSuccess) return err;
   const int need = (L + n_sm - 1) / n_sm;
   *lb = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
   return cudaSuccess;
 }
 
-int wgrad_blocks() {
-  int dev = 0, n_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return -1;
-  return n_sm;
+// The backward's lanes per block: as few as fill the SMs once (not rounded
+// to a power of two), at most BWD_LB_MAX; more lanes take more waves.
+cudaError_t bwd_lanes_per_block(int L, int* lb) {
+  int n_sm = 0;
+  cudaError_t err = sm_count(&n_sm);
+  if (err != cudaSuccess) return err;
+  const int need = (L + n_sm - 1) / n_sm;
+  *lb = need < 1 ? 1 : need > BWD_LB_MAX ? BWD_LB_MAX : need;
+  return cudaSuccess;
+}
+
+// Row chunks of the weight-gradient GEMM: its 3 jobs x chunks blocks, one
+// per SM, fill the card once.
+int wgrad_chunks() {
+  int n_sm = 0;
+  if (sm_count(&n_sm) != cudaSuccess) return -1;
+  return n_sm / 3 > 0 ? n_sm / 3 : 1;
 }
 
 }  // namespace
@@ -569,10 +1156,10 @@ extern "C" int eabnet_lstm_bf_fwd_train(const float* xw1, const float* w_hh1,
 // Floats of scratch the wrapper allocates for one backward launch:
 // dgates2 (T, L, 256) and the weight-gradient partials.
 extern "C" long long eabnet_lstm_bf_bwd_workspace(int T, int L) {
-  const int nblk = wgrad_blocks();
-  if (nblk < 1) return -1;
+  const int nchunk = wgrad_chunks();
+  if (nchunk < 1) return -1;
   return static_cast<long long>(T) * L * G +
-         static_cast<long long>(nblk) * (3 * H * G + G);
+         static_cast<long long>(nchunk) * DW_FLOATS;
 }
 
 // Backward: xw1 (T, L, 256), dy (T, L, 64) and the residuals h1, c1, h2, c2
@@ -580,37 +1167,54 @@ extern "C" long long eabnet_lstm_bf_bwd_workspace(int T, int L) {
 // and dw = [dW_hh1, dW_ih2, dW_hh2 (64, 256) each, db2 (256)] contiguous.
 // work holds eabnet_lstm_bf_bwd_workspace(T, L) floats. Three launches on
 // one stream: the reverse-time walk, the weight-gradient partials, their
-// sum. Returns a cudaError_t.
+// sum; stages (bits 1, 2, 4) picks which of them run, 7 for all (the
+// others only to time one launch alone). Returns a cudaError_t.
 extern "C" int eabnet_lstm_bf_bwd(const float* xw1, const float* dy,
                                   const float* h1, const float* c1,
                                   const float* h2, const float* c2,
                                   const float* w_hh1, const float* w_ih2,
                                   const float* w_hh2, const float* b2,
                                   float* dxw1, float* dw, float* work, int T,
-                                  int L, void* stream) {
+                                  int L, int stages, void* stream) {
   if (T < 1 || L < 1) return cudaErrorInvalidValue;
   int lb = 0;
-  cudaError_t err = lanes_per_block(L, &lb);
+  cudaError_t err = bwd_lanes_per_block(L, &lb);
   if (err != cudaSuccess) return err;
-  const int nblk = wgrad_blocks();
-  if (nblk < 1) return cudaErrorInvalidDevice;
+  const int nchunk = wgrad_chunks();
+  if (nchunk < 1) return cudaErrorInvalidDevice;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dg2 = work;
   float* part = work + static_cast<size_t>(T) * L * G;
-  switch (lb) {
-    case 1: err = launch_bwd<1>(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, s); break;
-    case 2: err = launch_bwd<2>(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, s); break;
-    case 4: err = launch_bwd<4>(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, s); break;
-    case 8: err = launch_bwd<8>(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, s); break;
-    default: err = launch_bwd<16>(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, s); break;
+  if (stages & 1) {
+    const size_t smem = bwd_smem_bytes(lb);
+    auto kernel = lb > 8 ? lstm_bf_bwd_kernel : lstm_bf_bwd_narrow_kernel;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<(L + lb - 1) / lb, BWD_THREADS, smem, s>>>(
+        xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L,
+        lb);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  if (err != cudaSuccess) return err;
-  lstm_bf_wgrad_kernel<<<dim3(nblk, 3), G, 0, s>>>(h1, h2, dxw1, dg2, part, T, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n_out = 3 * H * G + G;
-  lstm_bf_wgrad_sum_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(part, dw, nblk);
-  return cudaGetLastError();
+  if (stages & 2) {
+    const size_t smem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
+    err = cudaFuncSetAttribute(lstm_bf_wgrad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    lstm_bf_wgrad_kernel<<<dim3(nchunk, 3), BWD_THREADS, smem, s>>>(
+        h1, h2, dxw1, dg2, part, T, L);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (stages & 4) {
+    lstm_bf_wgrad_sum_kernel<<<(DW_FLOATS + 255) / 256, 256, 0, s>>>(
+        part, dw, nchunk);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 extern "C" const char* eabnet_error_string(int err) {

@@ -64,7 +64,27 @@ class Enhancer:
 
     @torch.no_grad()
     def enhance_tensor(self, batch: torch.Tensor) -> torch.Tensor:
-        """(B, M, N) padded waveforms on ``self.device`` -> (B, N)."""
+        """(B, M, N) padded waveforms on ``self.device`` -> (B, N).
+
+        The compute dtype float32 means float32 products: on the card the
+        convolutions and matmuls run with TF32 off (cuDNN's convolutions
+        default to TF32), and the caller's flags are restored after."""
+        if batch.device.type != "cuda":
+            return self._enhance(batch)
+        matmul = torch.backends.cuda.matmul
+        matmul_tf32 = matmul.allow_tf32
+        cudnn = torch.backends.cudnn
+        try:
+            matmul.allow_tf32 = False
+            with cudnn.flags(enabled=cudnn.enabled,
+                             benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=False):
+                return self._enhance(batch)
+        finally:
+            matmul.allow_tf32 = matmul_tf32
+
+    def _enhance(self, batch: torch.Tensor) -> torch.Tensor:
         noisy_stft, _ = prepare_data(batch, None, self.cfg.stft)
         esti = self.model(noisy_stft)[self.output]
         return stft_to_wav(to_reference_layout(esti), self.cfg.stft)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``eabnet_tpu_torch/csrc/`` are compiled by ONE ``nvcc``
-call into ``build/eabnet_tpu_torch/libeabnet_kernels.so`` beside the
-package, at first use, and loaded with ``ctypes``. The library exposes a
+Each source under ``eabnet_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` call, all started together, and the objects are linked into
+``build/eabnet_tpu_torch/libeabnet_kernels.so`` beside the package, at
+first use, and loaded with ``ctypes``. The library exposes a
 plain C interface, so no PyTorch header is compiled and the build takes
 seconds. It is rebuilt when the hash of the sources or of the command
 changes; the new library is written under a temporary name and renamed
@@ -27,14 +28,14 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "eabnet_tpu_torch"
 LIB_NAME = "libeabnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C function -> (argtypes, restype)
     "eabnet_lstm_bf_fwd": ([_P] * 5 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_fwd_train": ([_P] * 8 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_bwd_workspace": ([_I, _I], ctypes.c_longlong),
-    "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _P], _I),
+    "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _I, _P], _I),
     "eabnet_tcm_chain_fwd": ([_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_tcm_chain_workspace": ([_I, _I], ctypes.c_longlong),
     "eabnet_tcm_chain_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
@@ -90,19 +91,32 @@ def load_library() -> Library:
     built, seconds, log = False, 0.0, ""
     if not (lib_path.exists() and stamp.exists()
             and stamp.read_text() == digest):
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+        try:
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                     os.path.join(tmp_dir, src.stem + ".o"), str(src)]
+                    for src in _sources() if src.suffix == ".cu"]
+            cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                         os.path.join(tmp_dir, LIB_NAME),
+                         *[c[c.index("-o") + 1] for c in cmds]])
+            logs = []
+            for group in (cmds[:-1], cmds[-1:]):  # compile together, link
+                procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True) for c in group]
+                outs = [proc.communicate()[0] for proc in procs]
+                logs += outs
+                for cmd, proc, out in zip(group, procs, outs):
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed ({proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{out}")
+            log = "".join(logs)
+            os.replace(os.path.join(tmp_dir, LIB_NAME), lib_path)
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, lib_path)
         stamp.write_text(digest)
         (BUILD_DIR / "nvcc.log").write_text(log)
         built = True

@@ -103,7 +103,10 @@ class EaBNet(nn.Module):
         self.bf_map = LSTMBeamformer(cfg.embed_dim, cfg.M, cfg.hid_node)
 
     def forward(self, inpt: torch.Tensor) -> torch.Tensor:
-        """inpt (B, T, F, M, 2) -> esti (B, T, F, 2)."""
+        """inpt (B, T, F, M, 2), or (B, T, F, 2) for one mic -> esti
+        (B, T, F, 2)."""
+        if inpt.dim() == 4:  # single-mic input
+            inpt = inpt.unsqueeze(-2)
         b, t, f, m, _ = inpt.shape
         # fold (mic, ri) into channels mic-major (channel = 2 m + ri), as
         # the JAX package does; then channel-first

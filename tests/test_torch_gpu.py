@@ -115,13 +115,62 @@ def test_slice_on_card_matches_golden_through_the_kernels(cuda):
     assert snr >= 40.0
 
 
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic)
+
+
+@pytest.mark.gpu
+def test_enhancer_under_default_flags_runs_float32(cuda):
+    """With torch's default flags (cuDNN's TF32 on) the Enhancer still runs
+    float32 convolutions: it meets the golden at >= 40 dB, stays within
+    float32 noise of a run with TF32 off process-wide, and leaves the
+    caller's flags as it found them. cuDNN's float32 algorithms are not
+    bitwise reproducible from run to run, and TF32 convolutions move the
+    output far more than float32 rounding does, so the two runs are held
+    to 100 dB of each other."""
+    from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    golden = np.load(os.path.join(
+        ROOT, "tests", "golden", "torch_port_composed_9mic_00000.npz"))
+    _, noisy = read_wav(os.path.join(ROOT, "release", "val_set", "noisy",
+                                     "00000.wav"))
+    enh = load_enhancer(os.path.join(ROOT, "release", "composed_9mic"),
+                        device="cuda")
+    saved = _tf32_flags()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults
+        torch.backends.cudnn.allow_tf32 = True
+        default = _tf32_flags()
+        out = enh(noisy)
+        assert _tf32_flags() == default
+        torch.backends.cudnn.allow_tf32 = False
+        off = enh(noisy)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved[:2]
+    ref = golden["esti"]
+    snr = 10 * np.log10(np.sum(ref ** 2) / np.sum((ref - out) ** 2))
+    assert snr >= 40.0
+    assert 10 * np.log10(np.sum(off ** 2) / np.sum((off - out) ** 2)) >= 100.0
+
+
 # The backward kernels at the shapes of the JAX kernel tests' gradient
 # checks and a little beyond, with their tolerances (tests/test_kernels.py:
 # d xw1 3e-5, weights 5e-5, rtol 1e-4; tests/test_tcm_chain.py: 6e-5, rtol
 # 1e-3) against the plain backward on the same card: d x per entry, the
-# weight gradients against their largest entry.
+# weight gradients against their largest entry. The shapes reach the
+# backward's edges: lanes per block from the SM count, up to 8 in the
+# narrow walk (L = 19 to 300; 137 leaves a short last block) and 9 in the
+# other (L = 1,127 leaves a short last block; 3,000 takes more than one
+# wave), one lane, one step, and T x L rows that end inside the
+# weight-gradient GEMM's 32-row stages and leave some of its chunks empty.
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,l", [(13, 19), (9, 23), (1, 300), (37, 133)])
+@pytest.mark.parametrize("t,l", [(13, 19), (9, 23), (1, 300), (37, 133),
+                                 (11, 137), (7, 1127), (5, 1), (1, 1),
+                                 (3, 3000), (601, 7)])
 def test_lstm_bwd_kernel_matches_plain_on_card(cuda, t, l):
     from eabnet_tpu_torch.kernels import lstm_bf as K
 
@@ -137,7 +186,10 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda, t, l):
         before = K.double_lstm.bwd_launches
         got = K._launch_bwd(xw1, dy, *states, *w)
         ref = K.double_lstm_bwd_reference(xw1, dy, *states, *w)
-    assert K.double_lstm.bwd_launches == before + 1
+        again = K._launch_bwd(xw1, dy, *states, *w)
+    assert K.double_lstm.bwd_launches == before + 2
+    # the weight-gradient sum runs in a fixed order: the same bits again
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     torch.testing.assert_close(got[0], ref[0], atol=3e-5, rtol=1e-4)
     # the weight gradients are sums over T x L rows: float32 rounding is
     # relative to their largest entries, so they are held against those

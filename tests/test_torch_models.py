@@ -49,6 +49,20 @@ def test_eabnet_matches_flax():
     np.testing.assert_allclose(ours, ref, atol=ATOL)
 
 
+def test_eabnet_single_mic_4d_input_matches_flax():
+    """A (B, T, F, 2) input is one mic: both packages add the mic axis."""
+    cfg = dict(EAB, M=1)
+    x = inputs(4)[..., 0, :]
+    jm = JEaBNet(JEaB(**cfg))
+    params = params_of(jm, x)
+    ref = np.asarray(jm.apply({"params": params}, x))
+    tm = load_jax_params(EaBNet(EaBNetConfig(**cfg)), params)
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x)).numpy()
+    assert ours.shape == ref.shape == (B, T, F, 2)
+    np.testing.assert_allclose(ours, ref, atol=ATOL)
+
+
 @pytest.mark.parametrize("squeezed", [False, True],
                          ids=["separate", "squeezed"])
 def test_gagnet_matches_flax(squeezed):

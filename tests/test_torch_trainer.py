@@ -98,6 +98,44 @@ def test_cli_train(tmp_path, capsys):
     assert os.path.exists(os.path.join(cfg.train.checkpoint_dir, "1.ckpt"))
 
 
+OVERRIDES = ["train.compute_dtype=float32", "train.lr=1e-4",
+             "model.eabnet.M=8", "data.dataset=fake",
+             "train.mesh_axes=[\"data\"]", "train.new_level.key=text"]
+
+
+def test_cli_overrides_match_jax():
+    """The port's --set gives the dict the JAX package's CLI gives."""
+    import dataclasses
+
+    from eabnet_tpu.cli.common import _apply_overrides
+    from eabnet_tpu_torch.cli.train import apply_overrides
+
+    d = dataclasses.asdict(ExperimentConfig())
+    ours = apply_overrides(json.loads(json.dumps(d)), OVERRIDES)
+    assert ours == _apply_overrides(json.loads(json.dumps(d)), OVERRIDES)
+    assert ours["train"]["lr"] == 1e-4 and ours["model"]["eabnet"]["M"] == 8
+    assert ours["train"]["new_level"] == {"key": "text"}
+
+
+def test_cli_train_set_trains_a_bfloat16_config(tmp_path, capsys):
+    """A config that records bfloat16 compute (as the released ones do)
+    trains in float32 through --set."""
+    from eabnet_tpu_torch.cli import train as cli
+
+    cfg = tiny_cfg(tmp_path, compute_dtype="bfloat16")
+    path = tmp_path / "exp.json"
+    path.write_text(cfg.to_json())
+    with pytest.raises(NotImplementedError):
+        cli.main(["--config", str(path), "--max-steps", "1", "--device",
+                  "cpu"])
+    cli.main(["--config", str(path), "--max-steps", "1", "--device", "cpu",
+              "--set", "train.compute_dtype=float32", "--set",
+              "train.lr=1e-4"])
+    assert "iter 1 epoch 0" in capsys.readouterr().out
+    saved = ExperimentConfig.load(str(tmp_path / "config.json"))
+    assert (saved.train.compute_dtype, saved.train.lr) == ("float32", 1e-4)
+
+
 def test_loader_batches_match_jax():
     ds_p = PD.FakeDataset(5, 3, 0.05, seed=3)
     ds_j = JD.FakeDataset(5, 3, 0.05, seed=3)
