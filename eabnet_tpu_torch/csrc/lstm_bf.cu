@@ -193,9 +193,9 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
 // step, not a roofline, sets its time when few lanes share an SM.
 //
 // The walk. A block owns LB <= 9 lanes (taken from the SM count, so 1,127
-// lanes fill 126 SMs; up to 8 lanes take the narrow walk further down,
-// which swaps the operands) as the rows of one 16-row tile, and runs all
-// six per-step products on the tensor cores as mma.sync m16n8k8 TF32 with
+// lanes fill 126 SMs; more than 9 lanes per SM take more waves: 1,288
+// take two) as the rows of one 16-row tile, and runs all six per-step
+// products on the tensor cores as mma.sync m16n8k8 TF32 with
 // the 3xTF32 split (a = a_hi + a_lo; a_lo b_hi + a_hi b_lo + a_hi b_hi,
 // which keeps float32's precision; one TF32 product keeps ~3 digits). The
 // three weight matrices stay in shared memory (192 KB), each row's columns
@@ -222,9 +222,12 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
 // 64-row tiles) and reads ~390 KB of weight fragments and ~200 KB of A
 // fragments from shared memory (at 128 B per clock, ~4,600 clocks), with
 // only 8 warps to overlap the two; and 7 of the 16 tile rows are idle at
-// LB = 9. Splitting the A tiles once into hi and lo words in shared memory
-// (fewer ALU instructions, twice the A loads) was measured slower, so each
-// warp splits its own fragments.
+// LB = 9, 14 at LB = 2 (one item: 161 lanes), where a walk with the
+// operands swapped (weights as the 16-row A, lanes as the 8-column B)
+// would issue fewer products; the released configs train 8 items a step
+// (LB = 9, two waves). Splitting the A tiles once into hi and lo words in
+// shared memory (fewer ALU instructions, twice the A loads) was measured
+// slower, so each warp splits its own fragments.
 //
 // The weight gradients: dW_hh1 = h1[t-1]^T dgates1 and [dW_ih2; dW_hh2] =
 // [h1[t] | h2[t-1]]^T dgates2, one K = 128 product, so dgates2 is read
@@ -633,277 +636,6 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
   }
 }
 
-// The walk for LB <= 8 lanes (the narrow walk): the same steps with the
-// operands' roles
-// swapped, weights as the mma's 16-row A operand and the lanes as its
-// 8-column B operand, so that a block of few lanes does not pay for 16
-// rows: 336 mma.sync per warp and step instead of 576. Warp w owns unit
-// u = 8w + g of lanes 2 tq and 2 tq + 1. A gates tile holds two gates of
-// units 8w .. 8w+7 (rows 0-7: gate q0, rows 8-15: gate q1), so again each
-// thread ends with all four gates of its (lane, unit) pairs; a transposed
-// tile holds W_hh2's and W_ih2's rows of those units (dh2' and the dh1
-// term), or W_hh1's with 8 zero rows (dh1'). Weights and their swizzle,
-// fragment offsets, prefetch and barriers are the other walk's.
-struct NarrowIn {
-  float x[4][2], dy[2], c1p[2], c2p[2];  // [gate][pair], [pair]
-};
-
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-lstm_bf_bwd_narrow_kernel(
-    const float* __restrict__ xw1, const float* __restrict__ dy,
-    const float* __restrict__ h1s, const float* __restrict__ c1s,
-    const float* __restrict__ h2s, const float* __restrict__ c2s,
-    const float* __restrict__ w_hh1, const float* __restrict__ w_ih2,
-    const float* __restrict__ w_hh2, const float* __restrict__ b2,
-    float* __restrict__ dxw1, float* __restrict__ dg2_out, int T, int L,
-    int LB) {
-  extern __shared__ float4 smem4[];
-  float* s_w1 = reinterpret_cast<float*>(smem4);  // W_hh1, swizzled
-  float* s_wi2 = s_w1 + H * G;                    // W_ih2, swizzled
-  float* s_wh2 = s_wi2 + H * G;                   // W_hh2, swizzled
-  float* s_h = s_wh2 + H * G;                     // [2][LB][SH]
-  float* s_dg2 = s_h + 2 * LB * SH;               // [LB][SD]
-  float* s_dg1 = s_dg2 + LB * SD;                 // [LB][SD]
-
-  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
-            tq = tid & 3;
-  const int lane0 = blockIdx.x * LB;
-  const int u = 8 * w + g;  // this thread's unit, lanes 2 tq + e
-  const bool bin = g < LB;  // the B operand's lane g is in the block
-  bool pin[2], pok[2];      // lane 2 tq + e in the block, in L
-  size_t pl[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    pin[e] = 2 * tq + e < LB;
-    pok[e] = pin[e] && lane0 + 2 * tq + e < L;
-    pl[e] = static_cast<size_t>(lane0 + 2 * tq + e);
-  }
-
-  // fragment offsets as in the other walk: A of the gates products
-  // W[8 a + 2 tq + e][64 q + 8 w + g] = wm[gb[e][a & 1] + 8 a G + 64 q];
-  // A of the transposed products W[8 w + g][8 kk + 2 tq, + 1] =
-  // wm[tb[kk & 3] + 32 (kk >> 2)]; B at row (lane) g, column 2 tq
-  const int b_off = g * SH + 2 * tq, e_off = g * SD + 2 * tq;
-  int gb[2][2], tb[4];
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-      gb[e][a] = wsw(8 * a + 2 * tq + e, 8 * w + g) - 8 * a * G;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) tb[m] = wsw(8 * w + g, 8 * m + 2 * tq);
-  auto load_b = [&](const float* p, uint32_t* bh, uint32_t* bl) {
-    const float2 v = ld2(p, bin);
-    split_tf32(v.x, bh[0], bl[0]);
-    split_tf32(v.y, bh[1], bl[1]);
-  };
-
-  for (int i = tid; i < H * G / 4; i += BWD_THREADS) {
-    const int r = i / (G / 4), j = (i % (G / 4)) * 4;
-    const int p = wsw(r, j);
-    *reinterpret_cast<float4*>(s_w1 + p) =
-        reinterpret_cast<const float4*>(w_hh1)[i];
-    *reinterpret_cast<float4*>(s_wi2 + p) =
-        reinterpret_cast<const float4*>(w_ih2)[i];
-    *reinterpret_cast<float4*>(s_wh2 + p) =
-        reinterpret_cast<const float4*>(w_hh2)[i];
-  }
-
-  auto load_h = [&](int s, float* dst) {
-    for (int i = tid; i < LB * (3 * H / 4); i += BWD_THREADS) {
-      const int r = i / (3 * H / 4), c = (i % (3 * H / 4)) * 4;
-      const int part = c / H, ts = part == 0 ? s : s - 1;
-      const bool ok = lane0 + r < L && ts >= 0;
-      const float* src = (part == 1 ? h2s : h1s) +
-          (ok ? (static_cast<size_t>(ts) * L + lane0 + r) * H + c % H : 0);
-      cp_async16(dst + r * SH + c, src, ok);
-    }
-    cp_async_commit();
-  };
-  auto ld1 = [](const float* p, bool ok) { return ok ? *p : 0.f; };
-  auto load_in = [&](int s, NarrowIn& in) {
-    const bool has_p = s > 0;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const size_t o = static_cast<size_t>(s) * L + pl[e];
-      const size_t op = static_cast<size_t>(has_p ? s - 1 : 0) * L + pl[e];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        in.x[q][e] = ld1(xw1 + o * G + q * H + u, pok[e]);
-      in.dy[e] = ld1(dy + o * H + u, pok[e]);
-      in.c1p[e] = ld1(c1s + op * H + u, pok[e] && has_p);
-      in.c2p[e] = ld1(c2s + op * H + u, pok[e] && has_p);
-    }
-  };
-
-  float bq[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bq[q] = b2[q * H + u];
-  // gates of step s from its h tile: acc[p] is the tile of gates 2p, 2p+1;
-  // entry 2 r + e is gate 2 p + r of pair e
-  auto gates = [&](const float* sh, const NarrowIn& in, float (*a2)[4],
-                   float (*a1)[4]) {
-    auto kstep = [&](int kk, const float* wm, float (*acc)[4]) {
-      uint32_t bh[2], bl[2];
-      load_b(sh + b_off + 8 * kk, bh, bl);
-      const float* wk = wm + (kk & 7) * 8 * G;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const float av[4] = {wk[gb[0][kk & 1] + 2 * p * H],
-                             wk[gb[0][kk & 1] + (2 * p + 1) * H],
-                             wk[gb[1][kk & 1] + 2 * p * H],
-                             wk[gb[1][kk & 1] + (2 * p + 1) * H]};
-        uint32_t ah[4], al[4];
-        split4(av, ah, al);
-        mma3(acc[p], ah, al, bh, bl);
-      }
-    };
-    float a2h[2][4];
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          a2[p][2 * r + e] = bq[2 * p + r];
-          a1[p][2 * r + e] = in.x[2 * p + r][e];
-          a2h[p][2 * r + e] = 0.f;
-        }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      kstep(kk, s_wi2, a2);
-      kstep(kk + 8, s_wh2, a2h);
-    }
-#pragma unroll
-    for (int kk = 16; kk < 24; ++kk) kstep(kk, s_w1, a1);
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a2[p][i] += a2h[p][i];
-  };
-
-  // carried per pair e
-  float dh1c[2] = {0.f, 0.f}, dh2c[2] = {0.f, 0.f};
-  float dc1[2] = {0.f, 0.f}, dc2[2] = {0.f, 0.f};
-  float c1t[2], c2t[2], a2[2][4], a1[2][4];
-  // a cell backward on gates a (layer 2 with dy, layer 1 without): dgates
-  // to the tile sd and (when store) to global memory at out, step s
-  auto cell = [&](float (*a)[4], float* dh, const float* dyv, float* dc,
-                  const float* ct, const float* cp, float* sd, float* out,
-                  int s, bool store) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float gt[4] = {a[0][e], a[0][2 + e], a[1][e], a[1][2 + e]};
-      dc[e] = cell_bwd(gt, dh[e] + (dyv ? dyv[e] : 0.f), dc[e], ct[e], cp[e]);
-      if (pin[e] && store) {
-        const size_t o = (static_cast<size_t>(s) * L + pl[e]) * G + u;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          sd[(2 * tq + e) * SD + q * H + u] = gt[q];
-          if (pok[e]) out[o + q * H] = gt[q];
-        }
-      }
-    }
-  };
-
-  NarrowIn cur, nxt;
-  load_h(T - 1, s_h + ((T - 1) & 1) * LB * SH);
-  load_in(T - 1, cur);
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const size_t o = (static_cast<size_t>(T - 1) * L + pl[e]) * H + u;
-    c1t[e] = ld1(c1s + o, pok[e]);
-    c2t[e] = ld1(c2s + o, pok[e]);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the weights and the h tile of T-1 are in
-  gates(s_h + ((T - 1) & 1) * LB * SH, cur, a2, a1);
-  cell(a2, dh2c, cur.dy, dc2, c2t, cur.c2p, s_dg2, dg2_out, T - 1, true);
-
-  for (int t = T - 1; t >= 0; --t) {
-    if (t > 0) {
-      load_h(t - 1, s_h + ((t - 1) & 1) * LB * SH);
-      load_in(t - 1, nxt);
-    }
-    __syncthreads();  // dgates2 of t is in
-
-    // ---- [dh2' | dh1 term] = [W_hh2; W_ih2] rows of unit u @ dgates2^T
-    {
-      float acc[8][4];
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 32; ++kk) {
-        uint32_t bh[2], bl[2];
-        load_b(s_dg2 + e_off + 8 * kk, bh, bl);
-        const int o = tb[kk & 3] + 32 * (kk >> 2);
-        const float2 w2 = *reinterpret_cast<const float2*>(s_wh2 + o);
-        const float2 wi = *reinterpret_cast<const float2*>(s_wi2 + o);
-        const float av[4] = {w2.x, wi.x, w2.y, wi.y};
-        uint32_t ah[4], al[4];
-        split4(av, ah, al);
-        mma3(acc[kk & 7], ah, al, bh, bl);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s2 = 0.f, s1 = 0.f;
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          s2 += acc[s][e];
-          s1 += acc[s][2 + e];
-        }
-        dh2c[e] = s2;
-        dh1c[e] += s1;
-      }
-    }
-
-    // ---- layer-1 cell backward: dgates1 = d xw1[t]
-    cell(a1, dh1c, nullptr, dc1, c1t, cur.c1p, s_dg1, dxw1, t, true);
-    cp_async_wait<0>();
-    __syncthreads();  // dgates1 and the h tile of t-1 are in
-
-    // ---- dh1' = W_hh1 rows of unit u @ dgates1^T (rows 8-15 zero)
-    {
-      float acc[8][4];
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 32; ++kk) {
-        uint32_t bh[2], bl[2];
-        load_b(s_dg1 + e_off + 8 * kk, bh, bl);
-        const float2 w1 = *reinterpret_cast<const float2*>(
-            s_w1 + tb[kk & 3] + 32 * (kk >> 2));
-        const float av[4] = {w1.x, 0.f, w1.y, 0.f};
-        uint32_t ah[4], al[4];
-        split4(av, ah, al);
-        mma3(acc[kk & 7], ah, al, bh, bl);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s1 = 0.f;
-#pragma unroll
-        for (int s = 0; s < 8; ++s) s1 += acc[s][e];
-        dh1c[e] = s1;
-      }
-    }
-
-    // ---- step t-1: c[t-1] as its c_t, its gates and layer-2 cell (at
-    //      t = 0 of no step: nothing is stored)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      c1t[e] = cur.c1p[e];
-      c2t[e] = cur.c2p[e];
-    }
-    gates(s_h + ((t - 1) & 1) * LB * SH, nxt, a2, a1);
-    cell(a2, dh2c, nxt.dy, dc2, c2t, nxt.c2p, s_dg2, dg2_out, t - 1, t > 0);
-    if (t > 0) cur = nxt;
-  }
-}
-
 // Weight-gradient partials on the tensor cores. blockIdx.y is the job:
 //   0: dW_hh1 = sum_n h1[n-L]^T dgates1[n]          (M = 64, N = 256)
 //   1, 2: [dW_ih2; dW_hh2] = sum_n [h1[n] | h2[n-L]]^T dgates2[n], columns
@@ -1167,15 +899,14 @@ extern "C" long long eabnet_lstm_bf_bwd_workspace(int T, int L) {
 // and dw = [dW_hh1, dW_ih2, dW_hh2 (64, 256) each, db2 (256)] contiguous.
 // work holds eabnet_lstm_bf_bwd_workspace(T, L) floats. Three launches on
 // one stream: the reverse-time walk, the weight-gradient partials, their
-// sum; stages (bits 1, 2, 4) picks which of them run, 7 for all (the
-// others only to time one launch alone). Returns a cudaError_t.
+// sum. Returns a cudaError_t.
 extern "C" int eabnet_lstm_bf_bwd(const float* xw1, const float* dy,
                                   const float* h1, const float* c1,
                                   const float* h2, const float* c2,
                                   const float* w_hh1, const float* w_ih2,
                                   const float* w_hh2, const float* b2,
                                   float* dxw1, float* dw, float* work, int T,
-                                  int L, int stages, void* stream) {
+                                  int L, void* stream) {
   if (T < 1 || L < 1) return cudaErrorInvalidValue;
   int lb = 0;
   cudaError_t err = bwd_lanes_per_block(L, &lb);
@@ -1185,36 +916,27 @@ extern "C" int eabnet_lstm_bf_bwd(const float* xw1, const float* dy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dg2 = work;
   float* part = work + static_cast<size_t>(T) * L * G;
-  if (stages & 1) {
-    const size_t smem = bwd_smem_bytes(lb);
-    auto kernel = lb > 8 ? lstm_bf_bwd_kernel : lstm_bf_bwd_narrow_kernel;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<(L + lb - 1) / lb, BWD_THREADS, smem, s>>>(
-        xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L,
-        lb);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (stages & 2) {
-    const size_t smem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
-    err = cudaFuncSetAttribute(lstm_bf_wgrad_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    lstm_bf_wgrad_kernel<<<dim3(nchunk, 3), BWD_THREADS, smem, s>>>(
-        h1, h2, dxw1, dg2, part, T, L);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (stages & 4) {
-    lstm_bf_wgrad_sum_kernel<<<(DW_FLOATS + 255) / 256, 256, 0, s>>>(
-        part, dw, nchunk);
-    err = cudaGetLastError();
-  }
-  return err;
+  size_t smem = bwd_smem_bytes(lb);
+  err = cudaFuncSetAttribute(lstm_bf_bwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bf_bwd_kernel<<<(L + lb - 1) / lb, BWD_THREADS, smem, s>>>(
+      xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, lb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
+  err = cudaFuncSetAttribute(lstm_bf_wgrad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bf_wgrad_kernel<<<dim3(nchunk, 3), BWD_THREADS, smem, s>>>(
+      h1, h2, dxw1, dg2, part, T, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lstm_bf_wgrad_sum_kernel<<<(DW_FLOATS + 255) / 256, 256, 0, s>>>(
+      part, dw, nchunk);
+  return cudaGetLastError();
 }
 
 extern "C" const char* eabnet_error_string(int err) {

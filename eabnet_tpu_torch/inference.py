@@ -22,6 +22,7 @@ from eabnet_tpu_torch.dsp import prepare_data, stft_to_wav
 from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.models.eabnet import to_reference_layout
 from eabnet_tpu_torch.utils.audio_io import read_wav, resample, write_wav
+from eabnet_tpu_torch.utils.precision import float32_products
 from eabnet_tpu_torch.weights import load_jax_params
 
 
@@ -64,25 +65,10 @@ class Enhancer:
 
     @torch.no_grad()
     def enhance_tensor(self, batch: torch.Tensor) -> torch.Tensor:
-        """(B, M, N) padded waveforms on ``self.device`` -> (B, N).
-
-        The compute dtype float32 means float32 products: on the card the
-        convolutions and matmuls run with TF32 off (cuDNN's convolutions
-        default to TF32), and the caller's flags are restored after."""
-        if batch.device.type != "cuda":
+        """(B, M, N) padded waveforms on ``self.device`` -> (B, N), with
+        float32 products on the card (``float32_products``)."""
+        with float32_products(batch.device):
             return self._enhance(batch)
-        matmul = torch.backends.cuda.matmul
-        matmul_tf32 = matmul.allow_tf32
-        cudnn = torch.backends.cudnn
-        try:
-            matmul.allow_tf32 = False
-            with cudnn.flags(enabled=cudnn.enabled,
-                             benchmark=cudnn.benchmark,
-                             deterministic=cudnn.deterministic,
-                             allow_tf32=False):
-                return self._enhance(batch)
-        finally:
-            matmul.allow_tf32 = matmul_tf32
 
     def _enhance(self, batch: torch.Tensor) -> torch.Tensor:
         noisy_stft, _ = prepare_data(batch, None, self.cfg.stft)

@@ -35,7 +35,7 @@ _SIGNATURES = {  # C function -> (argtypes, restype)
     "eabnet_lstm_bf_fwd": ([_P] * 5 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_fwd_train": ([_P] * 8 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_bwd_workspace": ([_I, _I], ctypes.c_longlong),
-    "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _I, _P], _I),
+    "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _P], _I),
     "eabnet_tcm_chain_fwd": ([_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_tcm_chain_workspace": ([_I, _I], ctypes.c_longlong),
     "eabnet_tcm_chain_bwd_workspace": ([_I] * 6, ctypes.c_longlong),

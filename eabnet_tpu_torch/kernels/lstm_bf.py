@@ -18,7 +18,6 @@ Weights are in the JAX package's layout: ``w_hh1`` (H, 4H), ``w_ih2`` and
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -147,40 +146,25 @@ def _launch_fwd(xw1, w_hh1, w_ih2, w_hh2, b2, states: bool):
     return tuple(outs) if states else outs[0]
 
 
-BWD_WALK, BWD_WGRAD, BWD_SUM = 1, 2, 4  # the backward's three launches
-
-
-def _bwd_buffers(xw1):
-    """(dxw1, dw, work): the backward's outputs and scratch for xw1's
-    shape; dw holds [dW_hh1, dW_ih2, dW_hh2 (H, 4H) each, db2 (4H)]."""
-    t, l, g4 = xw1.shape
-    n_work = int(load_library().lib.eabnet_lstm_bf_bwd_workspace(t, l))
-    if n_work < 0:
-        raise RuntimeError("double_lstm backward: no CUDA device to size "
-                           "the workspace")
-    new = functools.partial(torch.empty, dtype=torch.float32,
-                            device=xw1.device)
-    return new(xw1.shape), new(3 * H_KERNEL * g4 + g4), new(n_work)
-
-
-def _launch_bwd(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2,
-                stages: int = BWD_WALK | BWD_WGRAD | BWD_SUM, bufs=None):
-    """The backward kernels: -> (dxw1, dw_hh1, dw_ih2, dw_hh2, db2).
-
-    ``stages`` picks which of the three launches run (all by default) and
-    ``bufs`` gives ``_bwd_buffers``' tensors to reuse: together they time
-    one launch alone on what the earlier ones left in the buffers."""
+def _launch_bwd(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2):
+    """The backward kernels: -> (dxw1, dw_hh1, dw_ih2, dw_hh2, db2)."""
     t, l, g4 = xw1.shape
     h = H_KERNEL
     ins = [a.contiguous() for a in (xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2,
                                     w_hh2, b2)]
     lib = load_library()
-    dxw1, dw, work = _bwd_buffers(xw1) if bufs is None else bufs
+    n_work = int(lib.lib.eabnet_lstm_bf_bwd_workspace(t, l))
+    if n_work < 0:
+        raise RuntimeError("double_lstm backward: no CUDA device to size "
+                           "the workspace")
+    dxw1 = torch.empty_like(ins[0])
+    dw = torch.empty(3 * h * g4 + g4, dtype=torch.float32, device=xw1.device)
+    work = torch.empty(n_work, dtype=torch.float32, device=xw1.device)
     stream = torch.cuda.current_stream(xw1.device).cuda_stream
     with torch.cuda.device(xw1.device):
         err = lib.lib.eabnet_lstm_bf_bwd(
             *(a.data_ptr() for a in ins), dxw1.data_ptr(), dw.data_ptr(),
-            work.data_ptr(), t, l, stages, stream)
+            work.data_ptr(), t, l, stream)
     lib.check(err, "double_lstm backward kernel launch")
     double_lstm.bwd_launches += 1
     dws = dw[:3 * h * g4].view(3, h, g4)

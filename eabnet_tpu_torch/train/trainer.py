@@ -27,6 +27,7 @@ from eabnet_tpu_torch.train.checkpoint import (latest_checkpoint,
 from eabnet_tpu_torch.train.loggers import TrainLogger, num_params
 from eabnet_tpu_torch.train.step import (create_train_state, make_eval_step,
                                          make_train_step)
+from eabnet_tpu_torch.utils.precision import float32_products
 
 
 def _to_device(batch, device):
@@ -64,12 +65,14 @@ def train(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     ``{"step", "epoch", "eabnet", "postnet", "final", "seconds"}``, the
     losses before that step's update and the step's wall time (host to
     device copy, forward, backward, update, loss read back). On the card
-    it turns TF32 off for cuDNN and matmuls, process-wide: the compute
-    dtype "float32" means float32 products."""
+    it runs with float32 products (``float32_products``)."""
     require_training(cfg)
-    if torch.device(device).type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    with float32_products(device):
+        return _train(cfg, max_steps, device, tensorboard)
+
+
+def _train(cfg: ExperimentConfig, max_steps: Optional[int], device: str,
+           tensorboard: bool) -> List[Dict]:
     save_config(cfg, cfg.train.exp_root)
     logger = TrainLogger(cfg.train.checkpoint_dir, enabled=tensorboard)
     if cfg.train.fixed_seed:
