@@ -14,7 +14,12 @@ Phases, each announced with its elapsed seconds:
    seeded inputs; its time (CUDA events), the plain version's, the library
    yardstick's where one PyTorch call computes the same function, and the
    bound: max(FLOPs / 67 TFLOP/s, bytes / 3.35 TB/s), the H100 SXM f32
-   non-tensor peak and memory rate.
+   non-tensor peak and memory rate. The LSTM-BF forward at T = 701 for
+   one item and batches of 7, 8 and 16 (L = 161, 1,127, 1,288, 2,576),
+   each with its lanes per block, blocks and waves over the SMs and the
+   microseconds per step of it and of nn.LSTM; a second launch must give
+   the same bits, L = 1,127 must fill at least 120 of 132 SMs and L =
+   2,576 take one wave.
 4. slice: release/composed_9mic through load_enhancer on the card, with
    torch's default TF32 flags as a user has them. One item alone, with the
    kernels' launch counts read around that forward and the output held
@@ -28,7 +33,9 @@ Phases, each announced with its elapsed seconds:
    version on the card at the training shapes (T = 601; LSTM L = 1,127
    and 161, and 1,288 and 2,576: batches 8 and 16, as the released configs
    and the recipes train; TCM chains at B = 7 and 1), seeded inputs and
-   cotangents, release weights; times (the LSTM-BF backward also split
+   cotangents, release weights (the training forward, like the serving
+   one, with its launch geometry and per-step times, and a second launch
+   that must give the same bits); times (the LSTM-BF backward also split
    into its three launches, by kernel name under torch.profiler: the
    reverse-time walk, the weight-gradient partials, their sum), the plain
    version's, cuDNN's LSTM backward (and forward with grad
@@ -166,6 +173,27 @@ def snr_db(ref, est) -> float:
 
 
 # ---------------------------------------------------------------- kernels
+def fwd_geometry(lanes: int, t: int, ms: float, library_ms: float) -> dict:
+    """The LSTM-BF forward's launch at ``lanes`` lanes (lanes per block,
+    blocks, waves over the SMs) and the microseconds per step of the
+    kernel and of the library yardstick, printed and returned."""
+    import torch
+
+    from eabnet_tpu_torch.kernels.lstm_bf import fwd_lanes_per_block
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lb = fwd_lanes_per_block(lanes)
+    blocks = -(-lanes // lb)
+    geo = dict(t=t, lanes=lanes, lanes_per_block=lb, blocks=blocks, sms=sms,
+               waves=-(-blocks // sms), us_per_step=ms * 1e3 / t,
+               library_us_per_step=library_ms * 1e3 / t)
+    say(f"lstm_bf fwd T={t} L={lanes}: {lb} lanes per block, {blocks} "
+        f"blocks on {sms} SMs ({geo['waves']} wave(s)); "
+        f"{geo['us_per_step']:.3f} us per step, nn.LSTM "
+        f"{geo['library_us_per_step']:.3f} us")
+    return geo
+
+
 def lstm_case(bf_map, lanes: int, t: int, seed: int):
     """LSTM-BF kernel vs plain version (and nn.LSTM) at (T, L) lanes."""
     import torch
@@ -180,6 +208,7 @@ def lstm_case(bf_map, lanes: int, t: int, seed: int):
     args = (xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
     before = double_lstm.launches
     out = double_lstm(*args)
+    same = torch.equal(out, double_lstm(*args))
     ref = double_lstm_reference(*args)
     ref64 = double_lstm_reference(*(a.double() for a in args))
     torch.cuda.synchronize()
@@ -187,7 +216,8 @@ def lstm_case(bf_map, lanes: int, t: int, seed: int):
     say(f"lstm_bf T={t} L={lanes}: max|kernel-plain| {err:.3e} (tolerance "
         f"{KERNEL_ATOL:g}), "
         f"max|kernel-f64| {(out.double() - ref64).abs().max().item():.3e}, "
-        f"max|plain-f64| {(ref.double() - ref64).abs().max().item():.3e}")
+        f"max|plain-f64| {(ref.double() - ref64).abs().max().item():.3e}; "
+        f"a second launch gives {'the same bits' if same else 'OTHER BITS'}")
     # the library yardstick: cuDNN's two-layer LSTM from the embeddings,
     # with the same weights (it also computes the layer-1 projection)
     lstm = torch.nn.LSTM(64, 64, num_layers=2).cuda()
@@ -210,8 +240,9 @@ def lstm_case(bf_map, lanes: int, t: int, seed: int):
     say(f"lstm_bf T={t} L={lanes}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"nn.LSTM {library:.4f} ms, bound {bms:.4f} ms ({by}; "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    return dict(err=err, ms=ms, plain_ms=plain, library_ms=library,
-                bound_ms=bms, bound_by=by)
+    return dict(err=err, same=same, ms=ms, plain_ms=plain,
+                library_ms=library, bound_ms=bms, bound_by=by,
+                geometry=fwd_geometry(lanes, t, ms, library))
 
 
 def tcm_case(group, b: int, t: int, seed: int):
@@ -293,6 +324,8 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     w = (r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
     before = (K.double_lstm.launches, K.double_lstm.bwd_launches)
     states = K._launch_fwd(xw1, *w, states=True)
+    fwd_same = all(torch.equal(a, b) for a, b in
+                   zip(states, K._launch_fwd(xw1, *w, states=True)))
     ref_states = K.double_lstm_states_reference(xw1, *w)
     fwd_err = max((a - b).abs().max().item()
                   for a, b in zip(states, ref_states))
@@ -314,11 +347,13 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     # their largest entry and against the plain version's distance from
     # float64 (see the module docstring)
     f64_ratio = [dict(q=r["k64"] / r["p64"]) for r in rep[1:]]
-    ok = (fwd_err <= KERNEL_ATOL and rep[0]["ratio"] <= 1.0
+    ok = (fwd_err <= KERNEL_ATOL and fwd_same and rep[0]["ratio"] <= 1.0
           and all(r["normwise"] <= 1.0 and q["q"] <= LSTM_DW_F64_FACTOR
                   for r, q in zip(rep[1:], f64_ratio)) and same)
     say(f"lstm_bf bwd T={t} L={lanes}: training forward max|kernel-plain| "
-        f"{fwd_err:.3e}; backward (dxw1, dw_hh1, dw_ih2, dw_hh2, db2): "
+        f"{fwd_err:.3e}, a second launch gives "
+        f"{'the same bits' if fwd_same else 'OTHER BITS'}; backward (dxw1, "
+        f"dw_hh1, dw_ih2, dw_hh2, db2): "
         f"max|kernel-plain| {fmt(rep, 'max')}, per-entry tolerance ratio "
         f"{fmt(rep, 'ratio', '%.3f')}, share of entries outside "
         f"{fmt(rep, 'out')}, largest-entry ratio "
@@ -379,6 +414,7 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     say(f"lstm_bf T={t} L={lanes}: training forward {fwd_ms:.4f} ms, bound "
         f"{fwd_bms:.4f} ms ({fwd_by}), cuDNN LSTM forward with grad "
         f"{library_fwd:.4f} ms")
+    fwd_geo = fwd_geometry(lanes, t, fwd_ms, library_fwd)
     say(f"lstm_bf bwd T={t} L={lanes}: split by launch (torch.profiler): "
         + ("not measured (no device time recorded)" if split is None else
            f"reverse-time walk {split['walk']:.4f} ms, weight-gradient "
@@ -390,10 +426,10 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
         f"vs the port's {fwd_ms + ms:.4f} ms), bound {bms:.4f} ms ({by}; "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), bound on the "
         f"tensor cores (3 x TF32) {tc_bms:.4f} ms")
-    return dict(err=err, ok=ok, ms=ms, fwd_ms=fwd_ms, plain_ms=plain,
-                library_ms=library, library_fb_ms=library_fb,
-                library_fwd_ms=library_fwd, split_ms=split,
-                bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms)
+    return dict(err=err, ok=ok, ms=ms, fwd_ms=fwd_ms, fwd_err=fwd_err,
+                plain_ms=plain, library_ms=library, library_fb_ms=library_fb,
+                library_fwd_ms=library_fwd, fwd_geometry=fwd_geo,
+                split_ms=split, bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms)
 
 
 def tcm_bwd_case(group, b: int, t: int, seed: int):
@@ -860,6 +896,8 @@ def main() -> int:
         res = {
             "lstm_1": lstm_case(bf_map, 161, t, seed=1),
             "lstm_7": lstm_case(bf_map, 7 * 161, t, seed=2),
+            "lstm_8": lstm_case(bf_map, 8 * 161, t, seed=7),
+            "lstm_16": lstm_case(bf_map, 16 * 161, t, seed=8),
             "twin_1": tcm_case(twin_group, 1, t, seed=3),
             "twin_7": tcm_case(twin_group, 7, t, seed=4),
             "single_1": tcm_case(single_group, 1, t, seed=5),
@@ -869,6 +907,14 @@ def main() -> int:
         bad = [k for k, v in res.items() if not v["err"] <= KERNEL_ATOL]
         require(not bad, f"every kernel within {KERNEL_ATOL:g} of its plain "
                 f"version (outside: {bad})")
+        lstm_keys = ("lstm_1", "lstm_7", "lstm_8", "lstm_16")
+        require(all(res[k]["same"] for k in lstm_keys),
+                "lstm_bf: a second launch gives the same bits at every shape")
+        g7, g16 = res["lstm_7"]["geometry"], res["lstm_16"]["geometry"]
+        require(g7["blocks"] >= 120 * g7["sms"] // 132 and g16["waves"] == 1,
+                f"lstm_bf: L=1,127 runs on {g7['blocks']} of {g7['sms']} SMs "
+                f"(at least 120 of 132), L=2,576 in {g16['waves']} wave(s) "
+                f"(one)")
 
     # serving runs with torch's default flags (cuDNN's TF32 on, matmul's
     # off), as a user's process has them: the Enhancer must turn TF32 off
@@ -981,6 +1027,18 @@ def main() -> int:
         return {k: 3 * res[twin][k] + 18 * res[single][k]
                 for k in ("ms", "plain_ms", "bound_ms")}
 
+    # the LSTM-BF forward at every shape: serving (T=701) and the training
+    # variant (T=601), kernel and nn.LSTM (with grad on for training)
+    fwd_shapes = {}
+    for use, rows, ms_key, lib_key, geo_key in (
+            ("serve", [res[k] for k in lstm_keys], "ms", "library_ms",
+             "geometry"),
+            ("train", [bwd[k] for k in lstm_keys], "fwd_ms",
+             "library_fwd_ms", "fwd_geometry")):
+        for r in rows:
+            g = r[geo_key]
+            fwd_shapes[f"{use} T={g['t']} L={g['lanes']}"] = dict(
+                ms=r[ms_key], library_ms=r[lib_key], **g)
     tcm = per_forward("twin_1", "single_1")
     tcm_step = {k: 3 * bwd["twin_7"][k] + 18 * bwd["single_7"][k]
                 for k in ("ms", "plain_ms", "bound_ms")}
@@ -989,11 +1047,13 @@ def main() -> int:
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:57",
          "launches": main_launches["lstm_bf"],
-         "max_abs_err": max(res["lstm_1"]["err"], res["lstm_7"]["err"]),
+         "max_abs_err": max([res[k]["err"] for k in lstm_keys]
+                            + [bwd[k]["fwd_err"] for k in lstm_keys]),
          "ms": res["lstm_1"]["ms"], "plain_ms": res["lstm_1"]["plain_ms"],
          "bound_ms": res["lstm_1"]["bound_ms"],
          "bound_by": res["lstm_1"]["bound_by"],
-         "library_ms": res["lstm_1"]["library_ms"]},
+         "library_ms": res["lstm_1"]["library_ms"],
+         "shapes": fwd_shapes},
         {"name": "tcm_chain_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:175",

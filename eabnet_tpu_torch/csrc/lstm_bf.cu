@@ -8,25 +8,48 @@
 // b_hh1; each step computes
 //   gates1 = xw1[t] + h1 @ W_hh1
 //   gates2 = [h1, h2] @ [W_ih2; W_hh2] + b2
-// and the kernel writes the layer-2 hidden sequence h2 (T, L, H).
+// and the kernel writes the layer-2 hidden sequence h2 (T, L, H) (the
+// training variant also h1, c1 and c2).
 //
-// What bounds it: 701 dependent steps of two dependent small products.
-// Per lane-step the work is 48K multiply-adds on 96 floats of stream, so
-// the card's arithmetic rate, not its memory, is the roofline; but at
-// B = 1 there are only 161 lanes, and the chain of T x 2 dependent
-// matrix-vector products sets a latency floor that no roofline shows.
+// What bounds it: T dependent steps of small products. Per lane-step the
+// work is 48K multiply-adds on 96 floats of stream, so no roofline binds:
+// the time per step on the SM that owns the most lanes does. A block owns
+// LB lanes on one SM; per lane and step each of its 256 threads runs
+// 192 FFMA, 8 shared loads of 16 bytes, 6 shuffles and half an LSTM cell
+// (five precise tanhf). The FFMA throughput, 384 clocks per lane-step on the
+// SM's four schedulers, is the floor; the kernel runs at 35-44% of it
+// (eabnet_tpu_torch/tools/lstm_fwd_split.py): with two warps per
+// scheduler the products stall, and the cells (latency chains of tanhf)
+// and the sums take the rest. At one or two lanes per block (one item:
+// 161 lanes) nothing hides the chain of a step: products, then sums, then
+// cell, then the barrier.
 //
-// Design: one block of 256 threads (one per gate column) owns LB lanes
-// for the whole sequence. Both weight matrices (64 KB + 128 KB f32) live in
-// shared memory for the block's lifetime; h1/h2 of its lanes live in
-// shared memory, c1/c2 in the registers of the threads that update them.
-// A step is four phases separated by __syncthreads: layer-1 gate products
-// (each thread reads its weight column once and reuses it over the LB
-// lanes), layer-1 cell update, layer-2 gate products, layer-2 cell update
-// and output store. The next step's xw1 is loaded during layer 2. LB is
-// the smallest power of two that keeps the grid within one wave of SMs,
-// so small batches still spread over many SMs. Lanes past L are masked.
-// State, sums and activations are f32, with precise expf/tanhf.
+// Design. The layers run as a wavefront: pass s computes gates1[s] = xw1[s]
+// + h1[s-1] W_hh1 and gates2[s-1] = h1[s-1] W_ih2 + h2[s-2] W_hh2 + b2 from
+// one h1[s-1] | h2[s-2] tile, then the cells of h1[s] and h2[s-1]: T + 1
+// passes, one block barrier each. Thread t = 4 u + kq holds, for unit u, the
+// four gate columns (i, f, g, o) of W_hh1, W_ih2 and W_hh2 over a quarter kq
+// of the 64 rows (192 floats) in registers for the whole sequence: no weight
+// is read after the first pass, and each h value loaded feeds 8 FFMA (h1) or
+// 4 (h2). Lanes go in pairs: the four threads of a unit sum their quarters
+// over two lanes with shuffles, the partner across bit 1 of kq taking the
+// other layer and the one across bit 0 the other lane, so each thread ends
+// with the four gates of one (layer, lane) and takes that cell in registers:
+// every thread has a cell per pair. A pair's cell comes after the next
+// pair's products, with no branch between them, so its tanhf chains
+// interleave with that pair's FFMA. xw1 arrives by cp.async into a double
+// buffer a pass ahead; h1 and h2 live in a double buffer in shared memory
+// (rows padded by 8 floats), the cell states in shared memory slots that one
+// thread owns. LB = ceil(L / SMs) lanes per block (not rounded to a power of
+// two; at most FWD_LB_MAX, by shared memory), so the grid fills the card in
+// one wave up to 60 x 132 lanes; an odd LB leaves one lane of the last pair
+// idle. Lanes past L are masked. State, sums and activations are float32
+// with the precise tanhf; the sigmoid is 1/2 + tanh(x/2)/2, without a
+// division. No tensor cores: float32's precision would take three TF32
+// products each, with the weights re-read from shared memory and split every
+// step (the backward's walk), and the FFMA rate, at under half its floor,
+// is not what holds the step. No atomics: a second launch gives the same
+// bits.
 
 #include <cuda_runtime.h>
 
@@ -35,142 +58,199 @@
 namespace {
 
 constexpr int H = 64;
-constexpr int G = 4 * H;  // gate columns: one thread each
+constexpr int G = 4 * H;  // gate columns
 
-__device__ __forceinline__ float sigm(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// The sigmoid as 1/2 + tanh(x/2)/2 with the precise tanhf: the same
+// function as 1 / (1 + exp(-x)) to float32 rounding, without a division,
+// whose slow path (a call) would cut the cell math into pieces that the
+// scheduler cannot interleave with the products around it.
+__device__ __forceinline__ float sigm_t(float x) {
+  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
 }
 
-template <int LB, bool RES>
-__global__ void __launch_bounds__(G)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_LB_MAX = 60;  // lanes per block that fit in shared memory
+constexpr int HS = H + 8;       // h and cell-state row stride (floats)
+
+// Shared memory of a forward block: per lane (LB rounded up to even
+// lanes), the h1 | h2 double buffer (2 x 2 rows of HS), the xw1 double
+// buffer (2 x G) and the cell states (2 rows of HS); and b2 (G).
+constexpr int FWD_LANE_FLOATS = 4 * HS + 2 * G + 2 * HS;
+
+size_t fwd_smem_bytes(int lb) {
+  return sizeof(float) * (FWD_LANE_FLOATS * ((lb + 1) & ~1) + G);
+}
+
+template <bool RES>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
 lstm_bf_fwd_kernel(const float* __restrict__ xw1,
                    const float* __restrict__ w_hh1,
                    const float* __restrict__ w2,
                    const float* __restrict__ b2,
                    float* __restrict__ h1_out, float* __restrict__ c1_out,
                    float* __restrict__ h2_out, float* __restrict__ c2_out,
-                   int T, int L) {
+                   int T, int L, int LB) {
+  const int LP = (LB + 1) & ~1;  // lanes in pairs; a lane past LB is idle
   extern __shared__ float4 smem4[];
-  float* s_w1 = reinterpret_cast<float*>(smem4);  // [H][G]
-  float* s_w2 = s_w1 + H * G;                     // [2H][G]
-  float* s_h1 = s_w2 + 2 * H * G;                 // [LB][H]
-  float* s_h2 = s_h1 + LB * H;                    // [LB][H]
-  float* s_g = s_h2 + LB * H;                     // [LB][G]
+  float* s_h = reinterpret_cast<float*>(smem4);  // [2 buf][2 layer][LP][HS]
+  float* s_x = s_h + 4 * LP * HS;                // [2 buf][LP][unit][gate]
+  float* s_c = s_x + 2 * LP * G;                 // [2 layer][LP][HS]
+  float* s_b = s_c + 2 * LP * HS;                // [unit][gate]
 
-  const int j = threadIdx.x;
+  const int t = threadIdx.x, u = t >> 2, kq = t & 3;
+  const int own_layer = kq >> 1, own_lane = kq & 1;
   const int lane0 = blockIdx.x * LB;
-  for (int i = j; i < H * G; i += G) s_w1[i] = w_hh1[i];
-  for (int i = j; i < 2 * H * G; i += G) s_w2[i] = w2[i];
-  for (int i = j; i < LB * H; i += G) {
-    s_h1[i] = 0.0f;
-    s_h2[i] = 0.0f;
-  }
-  const float bj = b2[j];
 
-  // cell-update ownership: pair index q = j + r * G -> (lane q / H, unit q % H)
-  constexpr int PAIRS = (LB * H + G - 1) / G;
-  float c1[PAIRS], c2[PAIRS];
+  // xw1[s] for the block's lanes -> s_x[s & 1], gates of a unit together
+  auto load_x = [&](int s) {
+    float* dst = s_x + (s & 1) * LP * G + 4 * (t & (H - 1)) + (t >> 6);
+    for (int l = 0; l < LB; ++l) {
+      const bool ok = lane0 + l < L;
+      cp_async4(dst + l * G,
+                xw1 + (ok ? (static_cast<size_t>(s) * L + lane0 + l) * G + t
+                          : 0), ok);
+    }
+    cp_async_commit();
+  };
+  load_x(0);
+  for (int i = t; i < 4 * LP * HS; i += FWD_THREADS) s_h[i] = 0.0f;
+  for (int i = t; i < 2 * LP * HS; i += FWD_THREADS) s_c[i] = 0.0f;
+  s_b[4 * (t & (H - 1)) + (t >> 6)] = b2[t];
+  // this thread's weights, in registers for the whole sequence: rows k =
+  // 4 (kq + 4 i) + e of W_hh1, W_ih2 and W_hh2, the four gate columns of
+  // unit u
+  float wa[4][4][4], wb[4][4][4], wc[4][4][4];
 #pragma unroll
-  for (int r = 0; r < PAIRS; ++r) c1[r] = c2[r] = 0.0f;
-
-  float xcur[LB];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-  for (int l = 0; l < LB; ++l) {
-    const int lane = lane0 + l;
-    xcur[l] = lane < L ? xw1[static_cast<size_t>(lane) * G + j] : 0.0f;
-  }
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 4 * (kq + 4 * i) + e, col = q * H + u;
+        wa[i][e][q] = w_hh1[k * G + col];
+        wb[i][e][q] = w2[k * G + col];
+        wc[i][e][q] = w2[(H + k) * G + col];
+      }
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    float acc[LB];
-    // ---- layer-1 gates: xw1[t] + h1 @ W_hh1
+  // pass s: gates1[s] and gates2[s-1] from h1[s-1] | h2[s-2], then the
+  // cells of h1[s] (s < T) and h2[s-1] (s > 0)
+  for (int s = 0; s <= T; ++s) {
+    if (s + 1 < T) load_x(s + 1);
+    const float* hb = s_h + (s & 1) * 2 * LP * HS;
+    float* hn = s_h + ((s + 1) & 1) * 2 * LP * HS;
+    const float* xb = s_x + (s & 1) * LP * G;
+
+    // the gate sums of lanes m, m + 1: this thread's quarter of K (a layer
+    // 1, b layer 2), then the quarters summed: the partner across bit 1 of
+    // kq takes the other layer, the one across bit 0 the other lane, so
+    // each thread ends with the four gates of (own_layer, m + own_lane)
+    auto gates = [&](int m, float* gt) {
+      float a[2][4], b[2][4];
 #pragma unroll
-    for (int l = 0; l < LB; ++l) acc[l] = xcur[l];
-    for (int k = 0; k < H; k += 4) {
-      const float wa = s_w1[(k + 0) * G + j], wb = s_w1[(k + 1) * G + j];
-      const float wc = s_w1[(k + 2) * G + j], wd = s_w1[(k + 3) * G + j];
+      for (int ln = 0; ln < 2; ++ln) {
+        const float4* p1 =
+            reinterpret_cast<const float4*>(hb + (m + ln) * HS) + kq;
+        const float4* p2 =
+            reinterpret_cast<const float4*>(hb + (LP + m + ln) * HS) + kq;
 #pragma unroll
-      for (int l = 0; l < LB; ++l) {
-        const float4 h = *reinterpret_cast<const float4*>(&s_h1[l * H + k]);
-        acc[l] += h.x * wa;
-        acc[l] += h.y * wb;
-        acc[l] += h.z * wc;
-        acc[l] += h.w * wd;
-      }
-    }
+        for (int q = 0; q < 4; ++q) a[ln][q] = b[ln][q] = 0.0f;
 #pragma unroll
-    for (int l = 0; l < LB; ++l) s_g[l * G + j] = acc[l];
-    if (t + 1 < T) {  // prefetch the next step's projected input
+        for (int i = 0; i < 4; ++i) {
+          const float4 x4 = p1[4 * i], y4 = p2[4 * i];
+          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float y[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
-      for (int l = 0; l < LB; ++l) {
-        const int lane = lane0 + l;
-        xcur[l] = lane < L
-            ? xw1[(static_cast<size_t>(t + 1) * L + lane) * G + j] : 0.0f;
-      }
-    }
-    __syncthreads();
-    // ---- layer-1 cell
+          for (int e = 0; e < 4; ++e)
 #pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const int q = j + r * G;
-      if (q < LB * H) {
-        const int l = q / H, u = q % H;
-        const float* g = s_g + l * G;
-        const float c = sigm(g[H + u]) * c1[r] + sigm(g[u]) * tanhf(g[2 * H + u]);
-        c1[r] = c;
-        const float h = sigm(g[3 * H + u]) * tanhf(c);
-        s_h1[l * H + u] = h;
-        const int lane = lane0 + l;
-        if (RES && lane < L) {
-          const size_t o = (static_cast<size_t>(t) * L + lane) * H + u;
-          h1_out[o] = h;
-          c1_out[o] = c;
+            for (int q = 0; q < 4; ++q) {
+              a[ln][q] = fmaf(x[e], wa[i][e][q], a[ln][q]);
+              b[ln][q] = fmaf(x[e], wb[i][e][q], b[ln][q]);
+              b[ln][q] = fmaf(y[e], wc[i][e][q], b[ln][q]);
+            }
         }
       }
-    }
-    __syncthreads();
-    // ---- layer-2 gates: [h1, h2] @ [W_ih2; W_hh2] + b2
+      float r[2][4];
 #pragma unroll
-    for (int l = 0; l < LB; ++l) acc[l] = bj;
-    for (int half = 0; half < 2; ++half) {
-      const float* s_h = half ? s_h2 : s_h1;
-      const float* w = s_w2 + half * H * G;
-      for (int k = 0; k < H; k += 4) {
-        const float wa = w[(k + 0) * G + j], wb = w[(k + 1) * G + j];
-        const float wc = w[(k + 2) * G + j], wd = w[(k + 3) * G + j];
+      for (int ln = 0; ln < 2; ++ln)
 #pragma unroll
-        for (int l = 0; l < LB; ++l) {
-          const float4 h = *reinterpret_cast<const float4*>(&s_h[l * H + k]);
-          acc[l] += h.x * wa;
-          acc[l] += h.y * wb;
-          acc[l] += h.z * wc;
-          acc[l] += h.w * wd;
+        for (int q = 0; q < 4; ++q) {
+          const float send = own_layer ? a[ln][q] : b[ln][q];
+          const float keep = own_layer ? b[ln][q] : a[ln][q];
+          r[ln][q] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
         }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float send = own_lane ? r[0][q] : r[1][q];
+        const float keep = own_lane ? r[1][q] : r[0][q];
+        gt[q] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
       }
-    }
-#pragma unroll
-    for (int l = 0; l < LB; ++l) s_g[l * G + j] = acc[l];
-    __syncthreads();
-    // ---- layer-2 cell and output
-#pragma unroll
-    for (int r = 0; r < PAIRS; ++r) {
-      const int q = j + r * G;
-      if (q < LB * H) {
-        const int l = q / H, u = q % H;
-        const float* g = s_g + l * G;
-        const float c = sigm(g[H + u]) * c2[r] + sigm(g[u]) * tanhf(g[2 * H + u]);
-        c2[r] = c;
-        const float h = sigm(g[3 * H + u]) * tanhf(c);
-        s_h2[l * H + u] = h;
-        const int lane = lane0 + l;
+    };
+    // the cell of (own_layer, lane m + own_lane) from its gate sums; no
+    // branch but the stores, so that it interleaves with the next pair's
+    // products
+    auto cell = [&](int m, const float* gt) {
+      const int l = m + own_lane, lane = lane0 + l;
+      const int row = own_layer * LP + l;
+      const float4 add = *reinterpret_cast<const float4*>(
+          own_layer ? s_b + 4 * u : xb + l * G + 4 * u);
+      float* cp = s_c + row * HS + u;
+      const float c = sigm_t(gt[1] + add.y) * *cp +
+                      sigm_t(gt[0] + add.x) * tanhf(gt[2] + add.z);
+      const float h = sigm_t(gt[3] + add.w) * tanhf(c);
+      if (l < LB && (own_layer ? s > 0 : s < T)) {
+        *cp = c;
+        hn[row * HS + u] = h;
         if (lane < L) {
-          const size_t o = (static_cast<size_t>(t) * L + lane) * H + u;
-          h2_out[o] = h;
-          if (RES) c2_out[o] = c;
+          if (own_layer) {
+            const size_t o = (static_cast<size_t>(s - 1) * L + lane) * H + u;
+            h2_out[o] = h;
+            if (RES) c2_out[o] = c;
+          } else if (RES) {
+            const size_t o = (static_cast<size_t>(s) * L + lane) * H + u;
+            h1_out[o] = h;
+            c1_out[o] = c;
+          }
         }
       }
+    };
+    float gt[4];
+    gates(0, gt);
+#pragma unroll 1
+    for (int m = 2; m < LP; m += 2) {
+      float nx[4];
+      gates(m, nx);
+      cell(m - 2, gt);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gt[q] = nx[q];
     }
-    __syncthreads();
+    cell(LP - 2, gt);
+    cp_async_wait<0>();
+    __syncthreads();  // h1[s], h2[s-1] and xw1[s+1] are in; s_x[s & 1] free
   }
 }
 
@@ -271,22 +351,6 @@ __device__ __forceinline__ void split4(const float* v, uint32_t* hi,
   for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_LB_MAX = 9;  // lanes per block that fit beside the weights
 constexpr int SH = 3 * H + 8;  // h tile row: h1[t] | h2[t-1] | h1[t-1]
@@ -303,14 +367,6 @@ size_t bwd_smem_bytes(int lb) {
 
 __device__ __forceinline__ float2 ld2(const float* p, bool ok) {
   return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
-}
-
-// The backward's sigmoid, 1/2 + tanh(x/2)/2 with the precise tanhf: the
-// same function as sigm to float32 rounding, without a division, whose
-// slow path (a call) would cut the cell math into pieces that the
-// scheduler cannot interleave with the tensor-core products around it.
-__device__ __forceinline__ float sigm_t(float x) {
-  return fmaf(0.5f, tanhf(0.5f * x), 0.5f);
 }
 
 // One LSTM cell backward: gates (i, f, g, o pre-activations) in, the
@@ -791,21 +847,6 @@ __global__ void lstm_bf_wgrad_sum_kernel(const float* __restrict__ part,
   dw[i] = s;
 }
 
-template <int LB, bool RES>
-cudaError_t launch_fwd(const float* xw1, const float* w_hh1, const float* w2,
-                       const float* b2, float* h1, float* c1, float* h2,
-                       float* c2, int T, int L, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * H * G + LB * (2 * H + G));
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bf_fwd_kernel<LB, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (L + LB - 1) / LB;
-  lstm_bf_fwd_kernel<LB, RES><<<grid, G, smem, stream>>>(
-      xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L);
-  return cudaGetLastError();
-}
-
 cudaError_t sm_count(int* n_sm) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -813,26 +854,33 @@ cudaError_t sm_count(int* n_sm) {
   return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// Lanes per block of the forward: the smallest power of two (at most 16)
-// that keeps the grid within one wave of SMs.
-cudaError_t lanes_per_block(int L, int* lb) {
+// Lanes per block, forward and backward: as few as fill the SMs once (not
+// rounded to a power of two), at most lb_max; more lanes take more waves.
+cudaError_t lanes_per_block(int L, int lb_max, int* lb) {
   int n_sm = 0;
   cudaError_t err = sm_count(&n_sm);
   if (err != cudaSuccess) return err;
   const int need = (L + n_sm - 1) / n_sm;
-  *lb = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
+  *lb = need < 1 ? 1 : need > lb_max ? lb_max : need;
   return cudaSuccess;
 }
 
-// The backward's lanes per block: as few as fill the SMs once (not rounded
-// to a power of two), at most BWD_LB_MAX; more lanes take more waves.
-cudaError_t bwd_lanes_per_block(int L, int* lb) {
-  int n_sm = 0;
-  cudaError_t err = sm_count(&n_sm);
+template <bool RES>
+cudaError_t launch_fwd(const float* xw1, const float* w_hh1, const float* w2,
+                       const float* b2, float* h1, float* c1, float* h2,
+                       float* c2, int T, int L, cudaStream_t stream) {
+  if (T < 1 || L < 1) return cudaErrorInvalidValue;
+  int lb = 0;
+  cudaError_t err = lanes_per_block(L, FWD_LB_MAX, &lb);
   if (err != cudaSuccess) return err;
-  const int need = (L + n_sm - 1) / n_sm;
-  *lb = need < 1 ? 1 : need > BWD_LB_MAX ? BWD_LB_MAX : need;
-  return cudaSuccess;
+  const size_t smem = fwd_smem_bytes(lb);
+  err = cudaFuncSetAttribute(lstm_bf_fwd_kernel<RES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bf_fwd_kernel<RES><<<(L + lb - 1) / lb, FWD_THREADS, smem, stream>>>(
+      xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, lb);
+  return cudaGetLastError();
 }
 
 // Row chunks of the weight-gradient GEMM: its 3 jobs x chunks blocks, one
@@ -850,19 +898,9 @@ int wgrad_chunks() {
 extern "C" int eabnet_lstm_bf_fwd(const float* xw1, const float* w_hh1,
                                   const float* w2, const float* b2, float* h2,
                                   int T, int L, void* stream) {
-  if (T < 1 || L < 1) return cudaErrorInvalidValue;
-  int lb = 0;
-  cudaError_t err = lanes_per_block(L, &lb);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* no = nullptr;
-  switch (lb) {
-    case 1: return launch_fwd<1, false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L, s);
-    case 2: return launch_fwd<2, false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L, s);
-    case 4: return launch_fwd<4, false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L, s);
-    case 8: return launch_fwd<8, false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L, s);
-    default: return launch_fwd<16, false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L, s);
-  }
+  return launch_fwd<false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The training forward: as eabnet_lstm_bf_fwd, and also writes the
@@ -871,18 +909,16 @@ extern "C" int eabnet_lstm_bf_fwd_train(const float* xw1, const float* w_hh1,
                                         const float* w2, const float* b2,
                                         float* h1, float* c1, float* h2,
                                         float* c2, int T, int L, void* stream) {
-  if (T < 1 || L < 1) return cudaErrorInvalidValue;
+  return launch_fwd<true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The forward's lanes per block for L lanes on the current device (its
+// grid is ceil(L / that) blocks), or minus a cudaError_t.
+extern "C" int eabnet_lstm_bf_fwd_lanes_per_block(int L) {
   int lb = 0;
-  cudaError_t err = lanes_per_block(L, &lb);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lb) {
-    case 1: return launch_fwd<1, true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, s);
-    case 2: return launch_fwd<2, true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, s);
-    case 4: return launch_fwd<4, true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, s);
-    case 8: return launch_fwd<8, true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, s);
-    default: return launch_fwd<16, true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, s);
-  }
+  const cudaError_t err = lanes_per_block(L < 1 ? 1 : L, FWD_LB_MAX, &lb);
+  return err == cudaSuccess ? lb : -static_cast<int>(err);
 }
 
 // Floats of scratch the wrapper allocates for one backward launch:
@@ -909,7 +945,7 @@ extern "C" int eabnet_lstm_bf_bwd(const float* xw1, const float* dy,
                                   int L, void* stream) {
   if (T < 1 || L < 1) return cudaErrorInvalidValue;
   int lb = 0;
-  cudaError_t err = bwd_lanes_per_block(L, &lb);
+  cudaError_t err = lanes_per_block(L, BWD_LB_MAX, &lb);
   if (err != cudaSuccess) return err;
   const int nchunk = wgrad_chunks();
   if (nchunk < 1) return cudaErrorInvalidDevice;

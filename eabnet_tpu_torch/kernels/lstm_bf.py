@@ -119,6 +119,16 @@ def _check(xw1, w_hh1, w_ih2, w_hh2, b2):
                              f"{tuple(w.shape)}")
 
 
+def fwd_lanes_per_block(lanes: int) -> int:
+    """The forward kernel's lanes per block for ``lanes`` lanes on the
+    current CUDA device; its grid is ceil(lanes / that) blocks."""
+    lib = load_library()
+    lb = int(lib.lib.eabnet_lstm_bf_fwd_lanes_per_block(lanes))
+    if lb < 1:
+        lib.check(-lb, "double_lstm lanes per block")
+    return lb
+
+
 def _launch_fwd(xw1, w_hh1, w_ih2, w_hh2, b2, states: bool):
     """The forward kernel: h2 only, or (h1, c1, h2, c2) when ``states``."""
     t, l, g4 = xw1.shape

@@ -52,20 +52,52 @@ def random_group(twin, kd1, dils, device, seed=0):
     return group.to(device)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("t,l", [(701, 161), (37, 5), (1, 300), (9, 1127)])
-def test_lstm_kernel_matches_plain_on_card(cuda, t, l):
+# The forward's edges: lanes per block from the SM count (L = 161: two;
+# 1,127: nine, an odd count, so the block's last pair of lanes has one
+# idle; 2,576: twenty, more than 16 in one wave; 133: one lane past a full
+# wave of one-lane blocks; 5 and 1: one lane per block), and one step.
+LSTM_FWD_SHAPES = [(701, 161), (37, 5), (1, 300), (9, 1127), (3, 2576),
+                   (5, 133), (1, 1), (6, 1)]
+
+
+def lstm_args(cuda, t, l):
     g = torch.Generator(device=cuda).manual_seed(t)
-    args = [torch.randn(t, l, 256, generator=g, device=cuda)] + [
+    return [torch.randn(t, l, 256, generator=g, device=cuda)] + [
         torch.randn(s, generator=g, device=cuda) * 0.2
         for s in ((64, 256), (64, 256), (64, 256), (256,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,l", LSTM_FWD_SHAPES)
+def test_lstm_kernel_matches_plain_on_card(cuda, t, l):
+    args = lstm_args(cuda, t, l)
     before = double_lstm.launches
     with torch.no_grad():
         out = double_lstm(*args)
+        again = double_lstm(*args)
         ref = double_lstm_reference(*args)
-    assert double_lstm.launches == before + 1
+    assert double_lstm.launches == before + 2
     assert out.shape == (t, l, 64)
     assert (out - ref).abs().max().item() <= ATOL
+    assert torch.equal(out, again)  # no atomics: the same bits again
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,l", LSTM_FWD_SHAPES)
+def test_lstm_train_forward_matches_plain_on_card(cuda, t, l):
+    """The training variant's four outputs (h1, c1, h2, c2), which the
+    backward reads, against the plain version's."""
+    from eabnet_tpu_torch.kernels import lstm_bf as K
+
+    args = lstm_args(cuda, t, l)
+    with torch.no_grad():
+        got = K._launch_fwd(*args, states=True)
+        again = K._launch_fwd(*args, states=True)
+        ref = K.double_lstm_states_reference(*args)
+    for a, b, c in zip(got, ref, again):
+        assert a.shape == (t, l, 64)
+        assert (a - b).abs().max().item() <= ATOL
+        assert torch.equal(a, c)
 
 
 @pytest.mark.gpu
