@@ -19,7 +19,11 @@ Phases, each announced with its elapsed seconds:
    each with its lanes per block, blocks and waves over the SMs and the
    microseconds per step of it and of nn.LSTM; a second launch must give
    the same bits, L = 1,127 must fill at least 120 of 132 SMs and L =
-   2,576 take one wave.
+   2,576 take one wave. The TCM-chain forward for one item and batches of
+   7, 8 and 16, each with its cooperative launch (blocks, blocks per SM,
+   tile rounds per block) and its bound also with every product as three
+   TF32 products on the tensor cores; a second launch must give the same
+   bits.
 4. slice: release/composed_9mic through load_enhancer on the card, with
    torch's default TF32 flags as a user has them. One item alone, with the
    kernels' launch counts read around that forward and the output held
@@ -32,7 +36,9 @@ Phases, each announced with its elapsed seconds:
    LSTM-BF training forward that saves its states, against its plain
    version on the card at the training shapes (T = 601; LSTM L = 1,127
    and 161, and 1,288 and 2,576: batches 8 and 16, as the released configs
-   and the recipes train; TCM chains at B = 7 and 1), seeded inputs and
+   and the recipes train; TCM chains at B = 7, 1, 8 and 16, each with its
+   launch geometry and its split by kernel name: the walk, the
+   weight-gradient GEMM, the sum), seeded inputs and
    cotangents, release weights (the training forward, like the serving
    one, with its launch geometry and per-step times, and a second launch
    that must give the same bits); times (the LSTM-BF backward also split
@@ -41,8 +47,8 @@ Phases, each announced with its elapsed seconds:
    version's, cuDNN's LSTM backward (and forward with grad
    on) as the yardstick, and the bound (for the LSTM-BF backward also at
    the tensor cores' TF32 rate, as its products run as three TF32
-   products each). A second LSTM-BF backward launch on the same input
-   must give the same bits. Tolerances are the JAX gradient tests'
+   products each; the TCM chain's too). A second backward launch on the
+   same input must give the same bits. Tolerances are the JAX gradient tests'
    (LSTM 3e-5 / 5e-5, rtol 1e-4; TCM 6e-5, rtol 1e-3), applied per entry
    to d xw1. The weight gradients are sums over ~10^5-10^6 rows, whose
    float32 rounding is relative to the largest terms: against a float64
@@ -166,6 +172,27 @@ def bound_ms(flops: float, nbytes: float):
                                      else "bytes")
 
 
+def tc_bound_ms(flops: float, nbytes: float) -> float:
+    """The bound with every product on the tensor cores as three TF32
+    products (the split that keeps float32's precision)."""
+    return max(3 * flops / TF32_PEAK, nbytes / MEM_RATE) * 1e3
+
+
+def tcm_geometry(name: str, b: int, t: int, k: int, twin: bool,
+                 backward: bool) -> dict:
+    """The TCM-chain kernel's cooperative launch at (B, T), printed and
+    returned: tiles, blocks, co-resident blocks per SM, tile rounds per
+    block (the most and the mean)."""
+    from eabnet_tpu_torch.kernels.tcm_chain import geometry
+
+    geo = geometry(b, t, k, twin, backward)
+    say(f"tcm_chain {'bwd ' if backward else ''}{name} B={b} T={t}: "
+        f"{geo['tiles']} tiles on {geo['blocks']} blocks "
+        f"({geo['blocks_per_sm']} per SM), tile rounds per block: most "
+        f"{geo['rounds_max']}, mean {geo['rounds_mean']:.3f}")
+    return geo
+
+
 def snr_db(ref, est) -> float:
     import numpy as np
 
@@ -258,6 +285,7 @@ def tcm_case(group, b: int, t: int, seed: int):
     dils, twin = group.dilations, group.twin_gate
     before = tcm_chain.launches
     out = tcm_chain(x, w, dils, twin)
+    same = torch.equal(out, tcm_chain(x, w, dils, twin))
     ref = tcm_chain_reference(x, w, dils, twin)
     ref64 = tcm_chain_reference(x.double(), tuple(v.double() for v in w),
                                 dils, twin)
@@ -269,7 +297,9 @@ def tcm_case(group, b: int, t: int, seed: int):
         f"(tolerance {KERNEL_ATOL:g}), "
         f"max|kernel-f64| {(out.double() - ref64).abs().max().item():.3e}, "
         f"max|plain-f64| {(ref.double() - ref64).abs().max().item():.3e}, "
-        f"max|ref| {ref.abs().max().item():.3e}")
+        f"max|ref| {ref.abs().max().item():.3e}; a second launch gives "
+        f"{'the same bits' if same else 'OTHER BITS'}")
+    geo = tcm_geometry(name, b, t, w[1].shape[1], twin, backward=False)
     ms = cuda_ms(lambda: tcm_chain(x, w, dils, twin), reps=50)
     plain = cuda_ms(lambda: tcm_chain_reference(x, w, dils, twin), reps=10)
     tcm_chain.launches = before
@@ -281,10 +311,13 @@ def tcm_case(group, b: int, t: int, seed: int):
     nbytes = 4.0 * (2 * b * t * d + p * (d * c + nb * k * c * c + c * d
                                          + 9 * c))
     bms, by = bound_ms(flops, nbytes)
+    tc_bms = tc_bound_ms(flops, nbytes)
     say(f"tcm_chain {name} B={b} T={t}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB)")
-    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        f"{nbytes / 1e6:.2f} MB), bound on the tensor cores (3 x TF32) "
+        f"{tc_bms:.4f} ms")
+    return dict(err=err, same=same, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, tc_bound_ms=tc_bms, geometry=geo)
 
 
 def tolerance_report(got, ref, ref64, atol: float, rtol: float) -> dict:
@@ -404,9 +437,7 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
     nbytes = 4.0 * (rows * (256 + 64 + 4 * 64 + 256) + 2 * (3 * 64 * 256
                                                              + 256))
     bms, by = bound_ms(flops, nbytes)
-    # the same work with every product on the tensor cores as three TF32
-    # products (the split that keeps float32's precision)
-    tc_bms = max(3 * flops / TF32_PEAK, nbytes / MEM_RATE) * 1e3
+    tc_bms = tc_bound_ms(flops, nbytes)
     # the training forward: the forward's products, xw1 in, 4 states out
     fwd_bms, fwd_by = bound_ms(2.0 * 3 * 64 * 256 * rows,
                                4.0 * (rows * (256 + 4 * 64) + 3 * 64 * 256
@@ -445,6 +476,11 @@ def tcm_bwd_case(group, b: int, t: int, seed: int):
     dils, twin = group.dilations, group.twin_gate
     before = K.tcm_chain.bwd_launches
     dx, dw, acts = K._launch_bwd(x, dy, w, dils, twin, activations=True)
+    # the weight gradients are summed in a fixed order: a second launch
+    # gives the same bits
+    again = K._launch_bwd(x, dy, w, dils, twin)
+    same = torch.equal(dx, again[0]) and all(
+        torch.equal(a, c) for a, c in zip(dw, again[1]))
     # the forward the kernel recomputed, against the plain forward
     fwd = K.tcm_chain_activations_reference(x, w, dils, twin)
     pairs = [(acts["x"], fwd["x"]), (acts["h"], fwd["h"])] + [
@@ -507,8 +543,18 @@ def tcm_bwd_case(group, b: int, t: int, seed: int):
         f"{fmt(own, 'out')}; max|kernel-f64| {fmt(rep, 'k64')}, "
         f"max|plain-f64| {fmt(own, 'p64')}; max|dx| "
         f"{pdx.abs().max().item():.3e}"
-        + ("" if twin else f", unused-branch gradients zero: {zero_ok}"))
+        + ("" if twin else f", unused-branch gradients zero: {zero_ok}")
+        + "; a second launch gives "
+        + ("the same bits" if same else "OTHER BITS"))
+    geo = tcm_geometry(name, b, t, w[1].shape[1], twin, backward=True)
     ms = cuda_ms(lambda: K._launch_bwd(x, dy, w, dils, twin), reps=10)
+    # the three launches' device time, by kernel name
+    by_kernel = device_ms(lambda: K._launch_bwd(x, dy, w, dils, twin), reps=5)
+    split = None if by_kernel is None else {
+        part: sum(v for key, v in by_kernel.items() if f"::{fn}" in key)
+        for part, fn in (("walk", "tcm_chain_bwd_kernel"),
+                         ("wgrad", "tcm_chain_wgrad_kernel"),
+                         ("sum", "tcm_chain_grad_sum_kernel"))}
     plain = cuda_ms(lambda: K.tcm_chain_bwd_reference(x, dy, w, dils, twin),
                     reps=3, warmup=1)
     K.tcm_chain.bwd_launches = before
@@ -520,11 +566,19 @@ def tcm_bwd_case(group, b: int, t: int, seed: int):
     wfloats = p * (d * c + nb * k * c * c + c * d + 9 * c)
     nbytes = 4.0 * (3 * b * t * d + 2 * wfloats)
     bms, by = bound_ms(flops, nbytes)
+    tc_bms = tc_bound_ms(flops, nbytes)
+    say(f"tcm_chain bwd {name} B={b} T={t}: split by launch "
+        "(torch.profiler): " + (
+            "not measured (no device time recorded)" if split is None else
+            f"walk {split['walk']:.4f} ms, weight-gradient GEMM "
+            f"{split['wgrad']:.4f} ms, sum {split['sum']:.4f} ms"))
     say(f"tcm_chain bwd {name} B={b} T={t}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB)")
-    return dict(err=err, ok=ok and zero_ok, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by)
+        f"{nbytes / 1e6:.2f} MB), bound on the tensor cores (3 x TF32) "
+        f"{tc_bms:.4f} ms")
+    return dict(err=err, ok=ok and zero_ok and same, same=same, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms,
+                split_ms=split, geometry=geo)
 
 
 def one_ulp_params(seed: int) -> bytes:
@@ -758,6 +812,7 @@ def kernel_category(name: str) -> str:
                       ("port tcm_chain", ("tcm_chain_fwd",)),
                       ("port lstm_bf bwd", ("lstm_bf_bwd", "lstm_bf_wgrad")),
                       ("port tcm_chain bwd", ("tcm_chain_bwd",
+                                              "tcm_chain_wgrad",
                                               "tcm_chain_grad_sum")),
                       ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
                                         "dgrad", "wgrad", "fprop", "winograd",
@@ -902,6 +957,11 @@ def main() -> int:
             "twin_7": tcm_case(twin_group, 7, t, seed=4),
             "single_1": tcm_case(single_group, 1, t, seed=5),
             "single_7": tcm_case(single_group, 7, t, seed=6),
+            # the batches the released configs (8) and recipes (16) take
+            "twin_8": tcm_case(twin_group, 8, t, seed=9),
+            "twin_16": tcm_case(twin_group, 16, t, seed=10),
+            "single_8": tcm_case(single_group, 8, t, seed=19),
+            "single_16": tcm_case(single_group, 16, t, seed=20),
         }
         del model
         bad = [k for k, v in res.items() if not v["err"] <= KERNEL_ATOL]
@@ -910,6 +970,10 @@ def main() -> int:
         lstm_keys = ("lstm_1", "lstm_7", "lstm_8", "lstm_16")
         require(all(res[k]["same"] for k in lstm_keys),
                 "lstm_bf: a second launch gives the same bits at every shape")
+        tcm_keys = [k for k in res if k.startswith(("twin", "single"))]
+        require(all(res[k]["same"] for k in tcm_keys),
+                "tcm_chain: a second launch gives the same bits at every "
+                "shape")
         g7, g16 = res["lstm_7"]["geometry"], res["lstm_16"]["geometry"]
         require(g7["blocks"] >= 120 * g7["sms"] // 132 and g16["waves"] == 1,
                 f"lstm_bf: L=1,127 runs on {g7['blocks']} of {g7['sms']} SMs "
@@ -1011,12 +1075,19 @@ def main() -> int:
                 model.postnet.gag_0.glance.tcn_0, 7, t, 15),
             "single_1": tcm_bwd_case(
                 model.postnet.gag_0.glance.tcn_0, 1, t, 16),
+            "twin_8": tcm_bwd_case(model.eabnet.stcn_0, 8, t, 21),
+            "twin_16": tcm_bwd_case(model.eabnet.stcn_0, 16, t, 22),
+            "single_8": tcm_bwd_case(
+                model.postnet.gag_0.glance.tcn_0, 8, t, 23),
+            "single_16": tcm_bwd_case(
+                model.postnet.gag_0.glance.tcn_0, 16, t, 24),
         }
         del model
         bad = [k for k, v in bwd.items() if not v["ok"]]
         require(not bad, "every backward kernel within the JAX "
-                f"gradient tests' tolerances of its plain version "
-                f"(outside: {bad})")
+                f"gradient tests' tolerances of its plain version, and the "
+                f"TCM chain's the same bits on a second launch (outside: "
+                f"{bad})")
 
     with Phase("train"):
         # part 2: the trainer on the card, the slice's main path
@@ -1025,7 +1096,7 @@ def main() -> int:
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
-                for k in ("ms", "plain_ms", "bound_ms")}
+                for k in ("ms", "plain_ms", "bound_ms", "tc_bound_ms")}
 
     # the LSTM-BF forward at every shape: serving (T=701) and the training
     # variant (T=601), kernel and nn.LSTM (with grad on for training)
@@ -1039,9 +1110,16 @@ def main() -> int:
             g = r[geo_key]
             fwd_shapes[f"{use} T={g['t']} L={g['lanes']}"] = dict(
                 ms=r[ms_key], library_ms=r[lib_key], **g)
+    def tcm_shapes(cases, t):
+        """Every TCM-chain case of a phase: its numbers and launch."""
+        return {f"{k.split('_')[0]} T={t} B={k.split('_')[1]}": {
+            f: v[f] for f in ("ms", "plain_ms", "bound_ms", "tc_bound_ms",
+                              "geometry", "split_ms") if f in v}
+            for k, v in cases.items() if k.startswith(("twin", "single"))}
+
     tcm = per_forward("twin_1", "single_1")
     tcm_step = {k: 3 * bwd["twin_7"][k] + 18 * bwd["single_7"][k]
-                for k in ("ms", "plain_ms", "bound_ms")}
+                for k in ("ms", "plain_ms", "bound_ms", "tc_bound_ms")}
     record = {"kernels": [
         {"name": "lstm_bf_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
@@ -1058,12 +1136,12 @@ def main() -> int:
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:175",
          "launches": main_launches["tcm_chain"],
-         "max_abs_err": max(res[k]["err"] for k in
-                            ("twin_1", "twin_7", "single_1", "single_7")),
+         "max_abs_err": max(res[k]["err"] for k in tcm_keys),
          "ms": tcm["ms"], "plain_ms": tcm["plain_ms"],
          "bound_ms": tcm["bound_ms"],
          "bound_by": res["twin_1"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "tc_bound_ms": tcm["tc_bound_ms"],
+         "shapes": tcm_shapes(res, 701)},
         {"name": "lstm_bf_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:107",
@@ -1080,12 +1158,16 @@ def main() -> int:
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:187",
          "launches": trained["launches"][3],
-         "max_abs_err": max(bwd[k]["err"] for k in
-                            ("twin_1", "twin_7", "single_1", "single_7")),
+         "max_abs_err": max(bwd[k]["err"] for k in tcm_keys),
          "ms": tcm_step["ms"], "plain_ms": tcm_step["plain_ms"],
          "bound_ms": tcm_step["bound_ms"],
          "bound_by": bwd["twin_7"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "tc_bound_ms": tcm_step["tc_bound_ms"],
+         "split_ms": {part: 3 * bwd["twin_7"]["split_ms"][part]
+                      + 18 * bwd["single_7"]["split_ms"][part]
+                      for part in ("walk", "wgrad", "sum")}
+         if bwd["twin_7"]["split_ms"] and bwd["single_7"]["split_ms"]
+         else None, "shapes": tcm_shapes(bwd, TRAIN_T)},
     ]}
     record["kernels"][0]["train_launches"] = trained["launches"][0]
     record["kernels"][1]["train_launches"] = trained["launches"][2]

@@ -55,6 +55,8 @@
 
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int H = 64;
@@ -315,41 +317,6 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
 // are 3xTF32 mma.sync GEMMs over a chunk of rows per block, their tiles
 // staged by a 4-deep cp.async ring of 32-row stages, rows padded to 8 mod
 // 32 floats.
-
-// x = hi + lo for the 3xTF32 split. hi is x rounded to TF32 (10 mantissa
-// bits, to nearest, ties away from zero: cvt.rna.tf32.f32's rounding, done
-// here with an integer add and mask, as cvt issues through the slower
-// conversion unit); lo = x - hi is exact in float32 and goes in as it is:
-// the tensor cores read the top 19 bits of a TF32 operand, which truncates
-// lo.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: the small cross terms first, a_lo b_lo dropped
-__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
-                                     const uint32_t* al, const uint32_t* bh,
-                                     const uint32_t* bl) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-__device__ __forceinline__ void split4(const float* v, uint32_t* hi,
-                                       uint32_t* lo) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
-}
 
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_LB_MAX = 9;  // lanes per block that fit beside the weights

@@ -29,6 +29,7 @@ from eabnet_tpu_torch.kernels._build import load_library
 
 EPS = 1e-5
 C_KERNEL = 64  # the kernel's squeezed width
+TILE_FRAMES = 16  # frames per tile of the kernels' cooperative grid
 
 
 def _prelu(x, alpha):
@@ -234,6 +235,20 @@ def _kernel_check(x, weights, dilations):
     if not all(w.is_contiguous() for w in (x,) + tuple(weights)):
         raise ValueError("tcm_chain: tensors must be contiguous")
     return b, t, d, k, p
+
+
+def geometry(b: int, t: int, k: int, twin: bool, backward: bool) -> dict:
+    """The cooperative launch of the forward (or the backward's walk) at
+    (B, T) on the current device: its tiles, blocks, co-resident blocks per
+    SM, and the most and the mean tile rounds per block."""
+    lib = load_library()
+    out = (ctypes.c_int * 2)()
+    err = lib.lib.eabnet_tcm_chain_geometry(int(backward), int(twin), k, b,
+                                            t, out)
+    lib.check(err, "tcm_chain geometry")
+    tiles = b * -(-t // TILE_FRAMES)
+    return dict(tiles=tiles, blocks=out[0], blocks_per_sm=out[1],
+                rounds_max=-(-tiles // out[0]), rounds_mean=tiles / out[0])
 
 
 def _launch_fwd(x, weights, dilations, twin):

@@ -100,9 +100,19 @@ def test_lstm_train_forward_matches_plain_on_card(cuda, t, l):
         assert torch.equal(a, c)
 
 
+# The TCM chain's shapes: one item at T = 701, the batches of the released
+# configs (8) and recipes (16) at T = 601 (16 takes two tile rounds),
+# ragged tiles (T = 17, 33, 70, 130), T = 100 (below the largest conv halo,
+# (K-1) dil = 128) and one frame.
+TCM_FWD_SHAPES = [(1, 701), (3, 33), (2, 1), (9, 130), (8, 601), (16, 601),
+                  (2, 17), (3, 100)]
+TCM_BWD_SHAPES = [(2, 33), (1, 1), (3, 70), (8, 601), (16, 601), (2, 17),
+                  (3, 100)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
-@pytest.mark.parametrize("b,t", [(1, 701), (3, 33), (2, 1), (9, 130)])
+@pytest.mark.parametrize("b,t", TCM_FWD_SHAPES)
 def test_tcm_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
     group = random_group(twin, kd1, dils, cuda, seed=b * t)
     x = torch.randn(b, t, 256, generator=torch.Generator(
@@ -111,8 +121,10 @@ def test_tcm_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
     with torch.no_grad():
         w = group.stacked_weights()
         out = tcm_chain(x, w, group.dilations, twin)
+        again = tcm_chain(x, w, group.dilations, twin)
         ref = tcm_chain_reference(x, w, group.dilations, twin)
-    assert tcm_chain.launches == before + 1
+    assert tcm_chain.launches == before + 2
+    assert torch.equal(out, again)  # no atomics: the same bits again
     assert (out - ref).abs().max().item() <= ATOL
 
 
@@ -232,7 +244,7 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda, t, l):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
-@pytest.mark.parametrize("b,t", [(2, 33), (1, 1), (3, 70)])
+@pytest.mark.parametrize("b,t", TCM_BWD_SHAPES)
 def test_tcm_bwd_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
     from eabnet_tpu_torch.kernels import tcm_chain as K
 
@@ -245,6 +257,7 @@ def test_tcm_bwd_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
         before = K.tcm_chain.bwd_launches
         dx, dw, acts = K._launch_bwd(x, dy, w, group.dilations, twin,
                                      activations=True)
+        again = K._launch_bwd(x, dy, w, group.dilations, twin)
         fwd = K.tcm_chain_activations_reference(x, w, group.dilations, twin)
         # the reverse walk against the plain one on the kernel's recomputed
         # forward, so a PReLU input within float32 noise of 0 takes the
@@ -252,7 +265,10 @@ def test_tcm_bwd_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
         rdx, rdw = K.tcm_chain_bwd_reference(x, dy, w, group.dilations, twin,
                                              acts=acts)
         pdx, pdw = K.tcm_chain_bwd_reference(x, dy, w, group.dilations, twin)
-    assert K.tcm_chain.bwd_launches == before + 1
+    assert K.tcm_chain.bwd_launches == before + 2
+    # the weight gradients are summed in a fixed order: the same bits again
+    assert torch.equal(dx, again[0])
+    assert all(torch.equal(a, c) for a, c in zip(dw, again[1]))
     for k in ("x", "h"):
         torch.testing.assert_close(acts[k], fwd[k], atol=ATOL, rtol=1e-5)
     for i in range(2 if twin else 1):

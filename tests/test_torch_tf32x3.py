@@ -9,7 +9,8 @@ against a float64 walk (tests/test_kernels.py: d xw1 3e-5, weights 5e-5,
 rtol 1e-4; the weights against their largest entry, as on the card) and
 stays as close to the float64 walk as a float32 walk does; as one TF32
 product it does not, and a weight-gradient GEMM of one TF32 product fails
-on the weights even beside a 3xTF32 walk."""
+on the weights even beside a 3xTF32 walk. The same holds for the TCM-chain
+kernels' forward and backward (below)."""
 
 import numpy as np
 import pytest
@@ -176,3 +177,173 @@ def test_one_tf32_weight_gradient_fails_on_the_weights(problem):
     # each weight gradient alone misses the float64 rule
     for a, b, p in zip(got[1:4], ref[1:4], plain[1:4]):
         assert np.abs(a - b).max() > F64_FACTOR * np.abs(p - b).max()
+
+
+# ------------------------------------------------------------ TCM chain
+# The TCM-chain kernels' arithmetic, emulated the same way: a chain of two
+# squeezed TCMs (twin: K = 5, dilations (1, 2); single: K = 3, the same
+# dilations) at D = 256, C = 64, its forward and its reverse walk written
+# out as csrc/tcm_chain.cu computes them, every product (the in- and
+# out-projections, the conv taps, their transposes in the walk and the
+# weight-gradient GEMM) through one ``dot``, IN statistics and elementwise
+# work in float32. Held against the same chain in float64 with the JAX
+# package's tolerances (tests/test_tcm_chain.py: forward 2e-5; gradients
+# 6e-5, rtol 1e-3, the weight gradients against their largest entry, as on
+# the card).
+
+TB, TT_, TD, TC = 2, 40, 256, 64
+TCM_CASES = {"twin": (True, 5, (1, 2)), "single": (False, 3, (1, 2))}
+FWD_ATOL, BWD_ATOL, BWD_RTOL = 2e-5, 6e-5, 1e-3
+
+
+def _prelu(x, a):
+    return np.maximum(x, 0) + a * np.minimum(x, 0)
+
+
+def _shift(a, s):
+    """(B, T, C) delayed by s frames (s > 0) or advanced by -s, zeros
+    entering."""
+    out = np.zeros_like(a)
+    if s >= 0:
+        out[:, s:] = a[:, :a.shape[1] - s]
+    else:
+        out[:, :s] = a[:, -s:]
+    return out
+
+
+def _mm(dot, a, w):
+    """(B, T, K) @ (K, M) through dot."""
+    return dot(a.reshape(-1, a.shape[-1]), w).reshape(a.shape[:-1] + (-1,))
+
+
+def _gram(dot, a, b):
+    """sum over (B, T) of a^T b: the weight-gradient GEMM."""
+    return dot(a.reshape(-1, a.shape[-1]).T, b.reshape(-1, b.shape[-1]))
+
+
+def _in(x, gamma, beta, eps=1e-5):
+    mean = x.mean(axis=1, keepdims=True)
+    inv = 1.0 / np.sqrt(((x - mean) ** 2).mean(axis=1, keepdims=True) + eps)
+    xhat = (x - mean) * inv
+    return xhat * gamma + beta, xhat, inv
+
+
+def _in_bwd(xhat, inv, gamma, dy):
+    dxh = dy * gamma
+    return (inv * (dxh - dxh.mean(axis=1, keepdims=True)
+                   - xhat * (dxh * xhat).mean(axis=1, keepdims=True)),
+            (dy * xhat).sum(axis=(0, 1)), dy.sum(axis=(0, 1)))
+
+
+def tcm_chain(dot, dtype, x, dy, w, dils, twin):
+    """The chain forward and its reverse walk in ``dtype``, products
+    through ``dot`` -> (y, dx, (dwi, dwl, dwr, dwo, dal, dga, dbe))."""
+    x, dy = (np.asarray(v, dtype) for v in (x, dy))
+    wi, wl, wr, wo, al, ga, be = (np.asarray(v, dtype) for v in w)
+    k = wl.shape[1]
+    branches = ((0, wl), (1, wr))[:2 if twin else 1]
+    saves = []
+    for j, dil in enumerate(dils):
+        s = {"x": x, "h": _mm(dot, x, wi[j])}
+        convs = []
+        for bi, wb in branches:
+            n, s[f"xh{bi}"], s[f"inv{bi}"] = _in(_prelu(s["h"], al[j, bi]),
+                                                 ga[j, bi], be[j, bi])
+            s[f"n{bi}"] = n
+            convs.append(sum(_mm(dot, _shift(n, (k - 1 - i) * dil), wb[j, i])
+                             for i in range(k)))
+        s["c"] = convs
+        sig = 1.0 / (1.0 + np.exp(-convs[-1]))
+        s["g"] = convs[0] * sig if twin else convs[0]
+        s["no"], s["xho"], s["invo"] = _in(_prelu(s["g"], al[j, 2]),
+                                           ga[j, 2], be[j, 2])
+        x = x + _mm(dot, s["no"], wo[j])
+        saves.append(s)
+    y = x
+    grads = [np.zeros_like(v) for v in (wi, wl, wr, wo, al, ga, be)]
+    dwi, dwl, dwr, dwo, dal, dga, dbe = grads
+    for j in range(len(dils) - 1, -1, -1):
+        s, dil = saves[j], dils[j]
+        dwo[j] = _gram(dot, s["no"], dy)
+        dpo, dga[j, 2], dbe[j, 2] = _in_bwd(s["xho"], s["invo"], ga[j, 2],
+                                            _mm(dot, dy, wo[j].T))
+        dg = np.where(s["g"] > 0, dpo, al[j, 2] * dpo)
+        dal[j, 2] = (dpo * np.minimum(s["g"], 0)).sum(axis=(0, 1))
+        if twin:
+            sig = 1.0 / (1.0 + np.exp(-s["c"][1]))
+            dcs = (dg * sig, dg * s["c"][0] * sig * (1 - sig))
+        else:
+            dcs = (dg,)
+        dh = np.zeros_like(s["h"])
+        for (bi, wb), dc, dw in zip(branches, dcs, (dwl, dwr)):
+            dn = np.zeros_like(dc)
+            for i in range(k):
+                sh = (k - 1 - i) * dil
+                dw[j, i] = _gram(dot, _shift(s[f"n{bi}"], sh), dc)
+                dn = dn + _shift(_mm(dot, dc, wb[j, i].T), -sh)
+            dp, dga[j, bi], dbe[j, bi] = _in_bwd(s[f"xh{bi}"], s[f"inv{bi}"],
+                                                 ga[j, bi], dn)
+            dh = dh + np.where(s["h"] > 0, dp, al[j, bi] * dp)
+            dal[j, bi] = (dp * np.minimum(s["h"], 0)).sum(axis=(0, 1))
+        dwi[j] = _gram(dot, s["x"], dh)
+        dy = dy + _mm(dot, dh, wi[j].T)
+    return y, dy, grads
+
+
+@pytest.fixture(scope="module")
+def tcm_problems():
+    """Per case: the float32 inputs, the float64 chain, and the float32
+    chain with exact products."""
+    out = {}
+    for name, (twin, k, dils) in TCM_CASES.items():
+        rng = np.random.default_rng(11 if twin else 12)
+        p = len(dils)
+        w = [rng.standard_normal((p, TD, TC)) / 16,
+             rng.standard_normal((p, k, TC, TC)) / (8 * k ** 0.5),
+             rng.standard_normal((p, k, TC, TC)) / (8 * k ** 0.5),
+             rng.standard_normal((p, TC, TD)) / 8,
+             rng.uniform(0.0, 0.5, (p, 3, TC)),
+             rng.uniform(0.5, 1.5, (p, 3, TC)),
+             rng.uniform(-0.5, 0.5, (p, 3, TC))]
+        x = rng.standard_normal((TB, TT_, TD))
+        dy = rng.standard_normal((TB, TT_, TD))
+        args = [np.asarray(a, np.float32).astype(np.float64)
+                for a in [x, dy] + w]
+        out[name] = (args, tcm_chain(dot_exact, np.float64, *args[:2],
+                                     args[2:], dils, twin))
+    return out
+
+
+def tcm_within(got, ref, twin):
+    """(forward within 2e-5, backward within 6e-5 + 1e-3 |ref|: d x per
+    entry, the weight gradients against their largest entry)."""
+    fwd = bool(np.all(np.abs(got[0] - ref[0]) <= FWD_ATOL))
+    bwd = bool(np.all(np.abs(got[1] - ref[1])
+                      <= BWD_ATOL + BWD_RTOL * np.abs(ref[1])))
+    for a, b in zip(got[2], ref[2]):
+        bwd &= bool(np.abs(a - b).max()
+                    <= BWD_ATOL + BWD_RTOL * np.abs(b).max())
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("part", ["forward", "backward"])
+@pytest.mark.parametrize("case", list(TCM_CASES))
+def test_tcm_chain_three_tf32_products_hold_the_jax_tolerances(
+        tcm_problems, case, part):
+    twin, _, dils = TCM_CASES[case]
+    args, ref = tcm_problems[case]
+    got = tcm_chain(dot_3xtf32, np.float32, *args[:2], args[2:], dils, twin)
+    fwd, bwd = tcm_within(got, ref, twin)
+    assert fwd if part == "forward" else bwd
+
+
+@pytest.mark.parametrize("case", list(TCM_CASES))
+def test_tcm_chain_one_tf32_product_misses_them(tcm_problems, case):
+    twin, _, dils = TCM_CASES[case]
+    args, ref = tcm_problems[case]
+    got = tcm_chain(dot_tf32, np.float32, *args[:2], args[2:], dils, twin)
+    assert not all(tcm_within(got, ref, twin))
+    # the float32 chain with exact products holds them: the misses are the
+    # products' precision
+    exact = tcm_chain(dot_exact, np.float32, *args[:2], args[2:], dils, twin)
+    assert all(tcm_within(exact, ref, twin))
