@@ -32,6 +32,20 @@ Phases, each announced with its elapsed seconds:
    flags must be as they were.
 5. profile: that batch once more under torch.profiler, device time by
    kernel and by category, and the device's idle share.
+5a. cln: the second shipped model, release/eabnet_9mic_cln (cLN in both
+   nets, the non-squeezed GaGNet), through load_enhancer with torch's
+   default flags: item 00000 against its JAX golden at both stages with
+   one LSTM-BF and no TCM-chain launch per forward (its cLN TCN groups run
+   module by module, as the JAX package routes them); the 7 val items as
+   one batch (SI-SDR gain > 0, wall, RTF) and profiled.
+5b. stream: that model's StreamingComposed with float32 products: item
+   00000's 701 offline STFT frames one at a time against the offline
+   model (within 2e-4, the JAX soak tolerance; no kernel launched; the
+   state's bytes after 8 frames those after 701); cli.stream on item 00000
+   and on the 7 val items in lockstep against the offline Enhancer
+   (correlation > 0.99, RMS ratio in (0.8, 1.25)); ms per frame (mean,
+   p50, p99) and kernel launches per frame at 1, 7 and 64 streams beside
+   the 10 ms hop.
 6. backward (the train phase, part 1): each backward kernel, and the
    LSTM-BF training forward that saves its states, against its plain
    version on the card at the training shapes (T = 601; LSTM L = 1,127
@@ -110,6 +124,14 @@ GOLDEN_MIN_SNR_DB = 40.0
 EXP = "release/composed_9mic"
 VAL = "release/val_set"
 GOLDEN = "tests/golden/torch_port_composed_9mic_00000.npz"
+EXP_CLN = "release/eabnet_9mic_cln"
+GOLDEN_CLN = "tests/golden/torch_port_eabnet_9mic_cln_00000.npz"
+STREAM_DIR = "build/chip_smoke_stream"
+# the JAX package's soak tolerance for streaming against offline
+# (tests/test_streaming_soak.py)
+STREAM_TOL = 2e-4
+STREAM_BATCHES = (1, 7, 64)
+STREAM_FRAMES = 30  # timed frames per batch of streams
 TRAIN_T = 601  # frames of one 6-s training item (96,000 samples)
 TRAIN_GOLDEN = "tests/golden/torch_port_train_composed_9mic.npz"
 TRAIN_DIR = "build/chip_smoke_train"
@@ -141,6 +163,19 @@ class Phase:
     def __exit__(self, exc_type, exc, tb):
         say(f"== phase {self.name}: {'FAILED' if exc_type else 'done'}")
         return False
+
+
+# the kernels' launch counters, in the order of the record's kernels
+LAUNCH_KEYS = ("lstm_bf", "tcm_chain", "lstm_bf_bwd", "tcm_chain_bwd")
+
+
+def launch_counters():
+    """(wrapper, counter attribute) of every kernel, as LAUNCH_KEYS."""
+    from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
+    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
+
+    return ((double_lstm, "launches"), (tcm_chain, "launches"),
+            (double_lstm, "bwd_launches"), (tcm_chain, "bwd_launches"))
 
 
 def require(cond: bool, what: str) -> None:
@@ -679,8 +714,6 @@ def train_phase():
 
     from eabnet_tpu_torch.config import ExperimentConfig
     from eabnet_tpu_torch.data.datasets import OfflineMcseDataset
-    from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
-    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
     from eabnet_tpu_torch.train.checkpoint import load_checkpoint
     from eabnet_tpu_torch.train.step import (create_train_state,
                                              make_train_step)
@@ -688,17 +721,15 @@ def train_phase():
     golden = np.load(TRAIN_GOLDEN)
     cfg_dict = json.loads(str(golden["config"]))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    counters = (double_lstm, "launches"), (double_lstm, "bwd_launches"), \
-        (tcm_chain, "launches"), (tcm_chain, "bwd_launches")
-    for obj, attr in counters:
+    for obj, attr in launch_counters():
         setattr(obj, attr, 0)
     # launches and step time with the trainer's defaults
     hist = train_run("timed", cfg_dict, 40000 + TRAIN_STEPS)[1]
-    launches = [getattr(obj, attr) for obj, attr in counters]
-    say(f"train: launches over {TRAIN_STEPS} steps (lstm_bf fwd, bwd, "
-        f"tcm_chain fwd, bwd): {launches}")
-    require(launches == [TRAIN_STEPS, TRAIN_STEPS, 21 * TRAIN_STEPS,
-                         21 * TRAIN_STEPS],
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                zip(LAUNCH_KEYS, launch_counters())}
+    say(f"train: launches over {TRAIN_STEPS} steps: {launches}")
+    require(launches == dict(zip(LAUNCH_KEYS, (
+        TRAIN_STEPS, 21 * TRAIN_STEPS, TRAIN_STEPS, 21 * TRAIN_STEPS))),
             "train: 1 + 1 LSTM-BF and 21 + 21 TCM-chain launches per step")
     # cuDNN's default convolution algorithms may sum in a run-dependent
     # order: the losses after step 1 and their one-ulp limits then move
@@ -892,6 +923,237 @@ def profile_run(fn) -> None:
         say(f"  {ms:9.3f} ms x{n:<5d} {key[:100]}")
 
 
+def latency(step, frames, reps: int) -> dict:
+    """Milliseconds per frame of ``step(frame)`` over frames 0..reps-1 of
+    ``frames`` (B, T, F, M, 2), each synchronised (a stream's frame is
+    done when its output is): mean, p50, p99, and the step's outputs."""
+    import numpy as np
+    import torch
+
+    ms, outs = [], []
+    for t in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs.append(step(frames[:, t]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return dict(mean=float(np.mean(ms)), p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)), outs=outs)
+
+
+def stream_phase(enh, smi: str) -> dict:
+    """The port's StreamingComposed of ``enh``'s model on the card, with
+    float32 products: item 00000's offline STFT frames one at a time
+    against the offline model (within STREAM_TOL, no kernel launched, the
+    state's bytes constant); cli.stream on that item and on the 7 val
+    items in lockstep against the offline Enhancer (correlation > 0.99,
+    RMS ratio in (0.8, 1.25) on the back half, as
+    tests/test_stream_cli.py); and ms and kernel launches per frame at 1,
+    7 and 64 streams beside the hop."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.cli import stream as stream_cli
+    from eabnet_tpu_torch.dsp import prepare_data
+    from eabnet_tpu_torch.streaming import StreamingComposed, state_bytes
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+    from eabnet_tpu_torch.utils.precision import float32_products
+
+    cfg = enh.cfg
+    hop_ms = cfg.stft.hop_samples / cfg.stft.sr * 1e3
+    names = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(VAL, "noisy", "*.wav")))
+    noisy = [read_wav(os.path.join(VAL, "noisy", n))[1] for n in names]
+    # the Enhancer's padding: the n_fft / 2 + 1 tail, then the 1-s bucket
+    n = max(x.shape[-1] for x in noisy)
+    padded = -(-(n + cfg.stft.fft_num // 2 + 1) // enh.bucket) * enh.bucket
+    wavs = torch.from_numpy(np.stack([np.pad(x, ((0, 0), (0, padded - n)))
+                                      for x in noisy])).cuda()
+    s = StreamingComposed(enh.model)
+    with float32_products("cuda"):
+        frames, _ = prepare_data(wavs, None, cfg.stft)  # (7, 701, F, 9, 2)
+        offline = enh.model(frames[:1])
+        t_all = frames.shape[1]
+        for obj, attr in launch_counters():
+            setattr(obj, attr, 0)
+        state = s.init_state(1)
+        sizes = []
+
+        def step(frame):
+            nonlocal state
+            state, out = s.step(state, frame)
+            if len(sizes) < 8:  # the bytes after frame 8
+                sizes.append(state_bytes(state))
+            return out
+
+        with torch.inference_mode():  # as cli.stream runs the step
+            lat = {1: latency(step, frames[:1], t_all)}
+        launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                    zip(LAUNCH_KEYS, launch_counters())}
+        outs = lat[1].pop("outs")
+        sizes.append(state_bytes(state))
+    say(f"stream: kernel launches over {t_all} frames: {launches}")
+    require(not any(launches.values()), "stream: no kernel of the port on "
+            "the frame step (its LSTM step is two products, as the JAX "
+            "stepper's runs outside Pallas)")
+    err = {}
+    for k in ("esti0", "esti"):
+        got = torch.stack([o[k] for o in outs], dim=1)
+        require(got.shape == offline[k].shape
+                and bool(torch.isfinite(got).all()),
+                f"stream {k}: finite, shape {tuple(got.shape)}")
+        err[k] = (got - offline[k]).abs().max().item()
+        say(f"stream {k}: {t_all} frames one at a time, max|stream - "
+            f"offline| {err[k]:.3e} (largest |offline| "
+            f"{offline[k].abs().max().item():.3e}; tolerance {STREAM_TOL:g})")
+    require(max(err.values()) <= STREAM_TOL,
+            f"stream: within {STREAM_TOL:g} of the offline model")
+    require(sizes[7] == sizes[-1], f"stream: state bytes after 8 frames "
+            f"({sizes[7]}) = after {t_all} ({sizes[-1]})")
+
+    # wav level, through the CLI as a user runs it
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    os.makedirs(STREAM_DIR)
+    one = os.path.join(STREAM_DIR, "00000.wav")
+    stream_cli.main([os.path.join(VAL, "noisy", "00000.wav"), one,
+                     "--exp-root", EXP_CLN])
+    stream_cli.main([os.path.join(VAL, "noisy"),
+                     os.path.join(STREAM_DIR, "val"), "--exp-root", EXP_CLN])
+    enh.output = "esti"
+    refs = enh.enhance_batch(noisy)
+    wav_checks = []
+    for path, ref in [(one, refs[0])] + [
+            (os.path.join(STREAM_DIR, "val", nm), r)
+            for nm, r in zip(names, refs)]:
+        got = read_wav(path)[1]
+        lead, warm = cfg.stft.fft_num // 2, len(got) // 2
+        m = min(len(ref), len(got) - lead) - warm
+        a, b = got[lead + warm:lead + warm + m], ref[warm:warm + m]
+        corr = float(np.corrcoef(a, b)[0, 1])
+        ratio = float(np.sqrt(np.mean(a ** 2) / np.mean(b ** 2)))
+        say(f"stream wav {os.path.relpath(path, STREAM_DIR)}: correlation "
+            f"with the offline Enhancer {corr:.8f}, RMS ratio {ratio:.5f}")
+        wav_checks.append(corr > 0.99 and 0.8 < ratio < 1.25)
+    require(all(wav_checks), "stream: every streamed wav correlates > 0.99 "
+            "with the offline Enhancer, RMS ratio in (0.8, 1.25)")
+
+    # latency and launches per frame at 1, 7 and 64 streams
+    per_frame = {}
+    with float32_products("cuda"), torch.inference_mode():
+        for b in STREAM_BATCHES:
+            batch = frames[[i % len(noisy) for i in range(b)]]
+            state = s.init_state(b)
+
+            def step(frame):
+                nonlocal state
+                state, _ = s.step(state, frame)
+
+            if b > 1:
+                latency(step, batch, 5)  # warm-up at this batch
+                lat[b] = latency(step, batch[:, 5:], STREAM_FRAMES)
+                del lat[b]["outs"]
+            rows, wall_ms = profiled(lambda: step(batch[:, 0]))
+            busy = sum(r[0] for r in rows)
+            per_frame[b] = dict(launches=sum(r[1] for r in rows),
+                                kernel_ms=busy, idle=1 - busy / wall_ms)
+    for b in STREAM_BATCHES:
+        say(f"stream B={b}: {lat[b]['mean']:.3f} ms per frame (p50 "
+            f"{lat[b]['p50']:.3f}, p99 {lat[b]['p99']:.3f}; "
+            f"{'all %d frames of item 00000' % t_all if b == 1 else '%d frames after 5' % STREAM_FRAMES}), "
+            f"{lat[b]['mean'] / b:.3f} ms per frame per stream, "
+            f"hop {hop_ms:g} ms; one profiled frame: "
+            f"{per_frame[b]['launches']} kernel launches, kernel time "
+            f"{per_frame[b]['kernel_ms']:.3f} ms, device idle share "
+            f"{per_frame[b]['idle']:.3f}; on {smi}")
+    return dict(err=err, latency=lat, launches_per_frame=per_frame,
+                state_bytes=sizes[-1], launches=launches)
+
+
+def serve_item(enh, golden_path: str, want: dict, label: str = "") -> dict:
+    """Item 00000 alone through ``enh`` at both stages: every kernel's
+    launches in one forward (must equal ``want``, keyed as LAUNCH_KEYS),
+    finite output, and SNR against the JAX golden; returns the launches of
+    the ``esti`` forward."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
+    golden = np.load(golden_path)
+    for stage in ("esti", "esti0"):
+        enh.output = stage
+        enh(noisy0)  # warm-up (cuDNN algorithm choice, allocator)
+        torch.cuda.synchronize()
+        for obj, attr in launch_counters():
+            setattr(obj, attr, 0)
+        out = enh(noisy0)
+        torch.cuda.synchronize()
+        launches = {k: getattr(obj, attr) for k, (obj, attr) in
+                    zip(LAUNCH_KEYS, launch_counters())}
+        say(f"{label}{stage}: launches in one forward {launches}")
+        require(launches == want, f"{label}{stage}: {want['lstm_bf']} "
+                f"LSTM-BF and {want['tcm_chain']} TCM-chain forward "
+                f"launches, no backward one")
+        require(out.shape == golden[stage].shape
+                and bool(np.isfinite(out).all()),
+                f"{label}{stage}: finite, shape {out.shape}")
+        snr = snr_db(golden[stage], out)
+        say(f"{label}{stage}: SNR vs the JAX golden {snr:.2f} dB")
+        require(snr >= GOLDEN_MIN_SNR_DB,
+                f"{label}{stage}: SNR vs golden >= {GOLDEN_MIN_SNR_DB} dB")
+        if stage == "esti":
+            esti_launches = launches
+    return esti_launches
+
+
+def serve_batch(enh, smi: str, label: str = "") -> dict:
+    """The 7 val items as one batch through ``enh`` (stage esti): SI-SDR
+    against the clean references (the mean gain over the noisy reference
+    mic must be > 0) and the wall time, min of 3 after a warm-up."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.eval.metrics import si_sdr
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    cfg = enh.cfg
+    enh.output = "esti"
+    names = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(VAL, "noisy", "*.wav")))
+    noisy = [read_wav(os.path.join(VAL, "noisy", n))[1] for n in names]
+    clean = [read_wav(os.path.join(VAL, "clean", n))[1] for n in names]
+    enh.enhance_batch(noisy)  # warm-up at the batch shape
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        enhanced = enh.enhance_batch(noisy)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    gains = []
+    for n, x, s, y in zip(names, noisy, clean, enhanced):
+        before, after = si_sdr(s, x[cfg.model.ref_mic]), si_sdr(s, y)
+        gains.append(after - before)
+        say(f"{label}{n}: SI-SDR noisy ref mic {before:.3f} dB -> enhanced "
+            f"{after:.3f} dB ({after - before:+.3f})")
+    mean_gain = float(np.mean(gains))
+    require(all(bool(np.isfinite(e).all()) for e in enhanced),
+            f"{label}batch outputs finite")
+    require(mean_gain > 0, f"{label}mean SI-SDR improvement {mean_gain:.3f} "
+            "dB > 0")
+    audio_s = sum(x.shape[-1] for x in noisy) / cfg.stft.sr
+    wall = min(walls)
+    say(f"{label}batch of {len(noisy)} items ({audio_s:.1f} s of audio): "
+        f"wall {wall * 1e3:.2f} ms (min of "
+        f"{['%.2f' % (w * 1e3) for w in walls]} ms), real-time factor "
+        f"{wall / audio_s:.5f}, on {smi}")
+    return dict(gain=mean_gain, wall=wall, rtf=wall / audio_s, noisy=noisy,
+                names=names)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import numpy as np
@@ -933,11 +1195,7 @@ def main() -> int:
     from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
     from eabnet_tpu_torch.config import ExperimentConfig
     from eabnet_tpu_torch.inference import load_enhancer
-    from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
-    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
     from eabnet_tpu_torch.models.composed import build_model
-    from eabnet_tpu_torch.utils.audio_io import read_wav
-    from eabnet_tpu_torch.eval.metrics import si_sdr
     from eabnet_tpu_torch.weights import load_jax_params
 
     with Phase("kernels"):
@@ -989,69 +1247,41 @@ def main() -> int:
                      torch.backends.cuda.matmul.allow_tf32)
     with Phase("slice"):
         enh = load_enhancer(EXP, device="cuda")
-        _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
-        golden = np.load(GOLDEN)
-        for stage in ("esti", "esti0"):
-            enh.output = stage
-            enh(noisy0)  # warm-up (cuDNN algorithm choice, allocator)
-            torch.cuda.synchronize()
-            double_lstm.launches = 0
-            tcm_chain.launches = 0
-            out = enh(noisy0)
-            torch.cuda.synchronize()
-            launches = {"lstm_bf": double_lstm.launches,
-                        "tcm_chain": tcm_chain.launches}
-            say(f"{stage}: launches in one forward {launches}")
-            require(launches == {"lstm_bf": 1, "tcm_chain": 21},
-                    f"{stage}: 1 LSTM-BF and 21 TCM-chain launches")
-            require(out.shape == golden[stage].shape
-                    and bool(np.isfinite(out).all()),
-                    f"{stage}: finite, shape {out.shape}")
-            snr = snr_db(golden[stage], out)
-            say(f"{stage}: SNR vs the JAX golden {snr:.2f} dB")
-            require(snr >= GOLDEN_MIN_SNR_DB,
-                    f"{stage}: SNR vs golden >= {GOLDEN_MIN_SNR_DB} dB")
-            if stage == "esti":
-                main_launches = launches
-
-        enh.output = "esti"
-        names = sorted(os.path.basename(p) for p in
-                       glob.glob(os.path.join(VAL, "noisy", "*.wav")))
-        noisy = [read_wav(os.path.join(VAL, "noisy", n))[1] for n in names]
-        clean = [read_wav(os.path.join(VAL, "clean", n))[1] for n in names]
-        enh.enhance_batch(noisy)  # warm-up at the batch shape
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            enhanced = enh.enhance_batch(noisy)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t1)
-        gains = []
-        for n, x, s, y in zip(names, noisy, clean, enhanced):
-            ref_mic = x[cfg.model.ref_mic]
-            before, after = si_sdr(s, ref_mic), si_sdr(s, y)
-            gains.append(after - before)
-            say(f"{n}: SI-SDR noisy ref mic {before:.3f} dB -> enhanced "
-                f"{after:.3f} dB ({after - before:+.3f})")
-        mean_gain = float(np.mean(gains))
-        require(all(bool(np.isfinite(e).all()) for e in enhanced),
-                "batch outputs finite")
-        require(mean_gain > 0, f"mean SI-SDR improvement {mean_gain:.3f} dB "
-                "> 0")
-        audio_s = sum(x.shape[-1] for x in noisy) / cfg.stft.sr
-        wall = min(walls)
-        say(f"batch of {len(noisy)} items ({audio_s:.1f} s of audio): wall "
-            f"{wall * 1e3:.2f} ms (min of {['%.2f' % (w * 1e3) for w in walls]}"
-            f" ms), real-time factor {wall / audio_s:.5f}, on {smi}")
-
+        main_launches = serve_item(enh, GOLDEN, dict(zip(
+            LAUNCH_KEYS, (1, 21, 0, 0))))
+        served = serve_batch(enh, smi)
         require((torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) == default_flags,
                 "the Enhancer left torch's TF32 flags as it found them")
 
     with Phase("profile"):
-        profile_run(lambda: enh.enhance_batch(noisy))
+        profile_run(lambda: enh.enhance_batch(served["noisy"]))
+    del enh
+
+    with Phase("cln"):
+        # the second shipped model, cLN in both nets, through the same
+        # entry point and with torch's default flags: its TCN groups take
+        # the per-TCM route (the TCM-chain kernel is causal IN only)
+        t_phase = time.perf_counter()
+        enh = load_enhancer(EXP_CLN, device="cuda")
+        cln_launches = serve_item(enh, GOLDEN_CLN, dict(zip(
+            LAUNCH_KEYS, (1, 0, 0, 0))), "cln ")
+        cln = serve_batch(enh, smi, "cln ")
+        say(f"cln: mean SI-SDR gain {cln['gain']:+.3f} dB over the "
+            f"{len(cln['noisy'])} val items, composed_9mic "
+            f"{served['gain']:+.3f} dB in the slice phase of this run")
+        profile_run(lambda: enh.enhance_batch(cln["noisy"]))
+        require((torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) == default_flags,
+                "cln: the Enhancer left torch's TF32 flags as it found them")
+        say(f"cln: phase {time.perf_counter() - t_phase:.1f} s")
     torch.backends.cudnn.allow_tf32 = False
+
+    with Phase("stream"):
+        t_phase = time.perf_counter()
+        streamed = stream_phase(enh, smi)
+        say(f"stream: phase {time.perf_counter() - t_phase:.1f} s")
+    del enh
 
     with Phase("backward"):
         # the train phase, part 1: the backward kernels against their
@@ -1145,7 +1375,7 @@ def main() -> int:
         {"name": "lstm_bf_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:107",
-         "launches": trained["launches"][1],
+         "launches": trained["launches"]["lstm_bf_bwd"],
          "max_abs_err": max(bwd[k]["err"] for k in
                             ("lstm_1", "lstm_7", "lstm_8", "lstm_16")),
          "ms": bwd["lstm_7"]["ms"], "plain_ms": bwd["lstm_7"]["plain_ms"],
@@ -1157,7 +1387,7 @@ def main() -> int:
         {"name": "tcm_chain_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:187",
-         "launches": trained["launches"][3],
+         "launches": trained["launches"]["tcm_chain_bwd"],
          "max_abs_err": max(bwd[k]["err"] for k in tcm_keys),
          "ms": tcm_step["ms"], "plain_ms": tcm_step["plain_ms"],
          "bound_ms": tcm_step["bound_ms"],
@@ -1169,8 +1399,17 @@ def main() -> int:
          if bwd["twin_7"]["split_ms"] and bwd["single_7"]["split_ms"]
          else None, "shapes": tcm_shapes(bwd, TRAIN_T)},
     ]}
-    record["kernels"][0]["train_launches"] = trained["launches"][0]
-    record["kernels"][1]["train_launches"] = trained["launches"][2]
+    record["kernels"][0]["train_launches"] = trained["launches"]["lstm_bf"]
+    record["kernels"][1]["train_launches"] = \
+        trained["launches"]["tcm_chain"]
+    # each path's launches, every counter read around that path's run: one
+    # forward of composed_9mic (slice) and of eabnet_9mic_cln (cln), every
+    # frame of the cLN stream, the train steps
+    for k, key in zip(record["kernels"], LAUNCH_KEYS):
+        k["launches_by_path"] = {
+            "slice": main_launches[key], "cln": cln_launches[key],
+            "stream": streamed["launches"][key],
+            "train": trained["launches"][key]}
     say("kernel times above are per forward of one 6-s item (B=1, T=701): "
         "lstm_bf one launch at L=161, tcm_chain 3 EaBNet + 18 GaGNet "
         "group launches; the backward ones per train step of 7 items (T="

@@ -243,20 +243,14 @@ class ExperimentConfig:
 
 
 def require_slice(cfg) -> None:
-    """Refuse a model configuration this slice of the port does not run.
+    """Refuse a model configuration the port does not run yet.
 
-    The port runs instance norm, the mimo topology with the LSTM beam-
-    forming head and the U²Net encoder/decoder. Everything else waits for
-    a later slice and raises here instead of running another path.
+    The port runs the four norms (IN, cLN, cLN-ref, BN), the U²Net and
+    plain UNet encoder/decoders, causal and non-causal TCNs, and the mimo
+    topology with the LSTM beamforming head. The miso topology and the cnn
+    head wait for a later slice and raise here instead of running another
+    path.
     """
-    if cfg.norm_type != "IN":
-        raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r}: the port runs 'IN' only; cLN and "
-            "BN are later slices of the port")
-    if not cfg.is_u2:
-        raise NotImplementedError(
-            "is_u2=False: the plain UNet encoder/decoder is a later slice of "
-            "the port")
     if isinstance(cfg, EaBNetConfig):
         if cfg.topo_type != "mimo":
             raise NotImplementedError(
@@ -271,16 +265,11 @@ def require_slice(cfg) -> None:
 def require_training(cfg: ExperimentConfig) -> None:
     """Refuse a training configuration this slice of the port does not
     run (beside ``require_slice``, which the models apply): bf16 compute,
-    batch-norm models, on-device synthesis, and meshes beyond one device's
-    data axis."""
+    on-device synthesis, and meshes beyond one device's data axis."""
     if cfg.train.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
             "float32 only; bf16 mixed precision is a later slice")
-    if "BN" in (cfg.model.eabnet.norm_type, cfg.model.gagnet.norm_type):
-        raise NotImplementedError(
-            "norm_type='BN': batch-norm training (running statistics) is a "
-            "later slice of the port")
     if cfg.data.device_mix:
         raise NotImplementedError(
             f"device_mix={cfg.data.device_mix!r}: on-device synthesis is a "

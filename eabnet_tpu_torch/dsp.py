@@ -4,7 +4,9 @@ The same transform as the JAX package's ``dsp/stft.py``: ``torch.stft``
 semantics with ``center=True``, reflect padding, onesided output and a
 periodic Hann window, computed as a float32 product with explicit DFT
 bases so that both packages round alike. Spectra are time-major:
-``stft`` gives ``(..., T, F, 2)`` (real, imag).
+``stft`` gives ``(..., T, F, 2)`` (real, imag). ``StreamingStft`` and
+``StreamingIstft`` are the same transforms one hop at a time, for
+streaming.
 """
 
 from __future__ import annotations
@@ -154,3 +156,68 @@ def stft_to_wav(esti_stft: torch.Tensor, cfg: StftConfig,
         spec = power_uncompress(spec, cfg.compression)
     return istft(spec, cfg.fft_num, cfg.hop_samples, cfg.win_samples,
                  length=length)
+
+
+class StreamingStft:
+    """Sample-in, frame-out STFT: each push of hop samples gives one
+    power-compressed (..., F, 2) frame. Equals :func:`stft` once the
+    window lies inside the signal (the offline transform reflect-pads its
+    first n_fft/2 samples; a stream starts from silence)."""
+
+    def __init__(self, cfg: StftConfig, device=None):
+        self.cfg = cfg
+        self.device = device
+        self.window = _window(cfg.win_samples, cfg.fft_num, device)
+        self.basis = torch.as_tensor(_dft_bases(cfg.fft_num),
+                                     dtype=torch.float32, device=device)
+
+    def init_state(self, *lead: int) -> torch.Tensor:
+        """The carried input tail: the last n_fft - hop samples."""
+        return torch.zeros(lead + (self.cfg.fft_num - self.cfg.hop_samples,),
+                           device=self.device)
+
+    def push(self, state: torch.Tensor, samples: torch.Tensor):
+        """state, (..., hop) samples -> (new state, (..., F, 2) frame)."""
+        buf = torch.cat([state, samples], dim=-1)  # (..., n_fft)
+        spec = (buf * self.window) @ self.basis
+        f = self.cfg.freq_bins
+        out = torch.stack([spec[..., :f], spec[..., f:]], dim=-1)
+        return buf[..., self.cfg.hop_samples:], power_compress(
+            out, self.cfg.compression)
+
+
+class StreamingIstft:
+    """Frame-in, sample-out iSTFT: each pushed (..., F, 2) frame gives hop
+    samples, n_fft - hop samples after its window's start (the
+    overlap-add's look-ahead), divided by the steady-state overlap-added
+    squared window. Equals the interior of :func:`istft`."""
+
+    def __init__(self, cfg: StftConfig, device=None):
+        self.cfg = cfg
+        self.device = device
+        n, hop = cfg.fft_num, cfg.hop_samples
+        window = _window(cfg.win_samples, n, device)
+        self.window = window
+        self.basis = torch.as_tensor(_idft_bases(n), dtype=torch.float32,
+                                     device=device)
+        w = window.cpu().numpy() ** 2  # float32, as the JAX package
+        wsq = np.zeros(n)
+        for k in range(-(n // hop) + 1, n // hop):
+            lo, hi = max(0, k * hop), min(n, n + k * hop)
+            wsq[lo:hi] += w[lo - k * hop:hi - k * hop]
+        self.envelope = torch.as_tensor(np.maximum(wsq[:hop], 1e-11),
+                                        dtype=torch.float32, device=device)
+
+    def init_state(self, *lead: int) -> torch.Tensor:
+        """The carried overlap-add tail of n_fft - hop samples."""
+        return torch.zeros(lead + (self.cfg.fft_num - self.cfg.hop_samples,),
+                           device=self.device)
+
+    def push(self, state: torch.Tensor, frame_ri: torch.Tensor):
+        """state, (..., F, 2) frame -> (new state, (..., hop) samples)."""
+        hop = self.cfg.hop_samples
+        ri = torch.cat([frame_ri[..., 0], frame_ri[..., 1]], dim=-1)
+        acc = (ri @ self.basis) * self.window
+        acc = torch.cat([acc[..., :state.shape[-1]] + state,
+                         acc[..., state.shape[-1]:]], dim=-1)
+        return acc[..., hop:], acc[..., :hop] / self.envelope

@@ -2,10 +2,13 @@
 
 ``load_enhancer(exp_root)`` reads ``config.json`` and the newest
 ``<iter>.params`` of an experiment directory written by the JAX package and
-returns an ``Enhancer``: 9-mic wav in, enhanced wav out. The model runs on
-``device`` (default ``"cuda"``); on a CUDA device the TCN groups and the
-LSTM head go through the hand-written kernels, on ``"cpu"`` through their
-plain versions.
+returns an ``Enhancer``: 9-mic wav in, enhanced wav out, with either
+shipped model (``release/composed_9mic``, IN; ``release/eabnet_9mic_cln``,
+cLN). The model runs on ``device`` (default ``"cuda"``); on a CUDA device
+the LSTM head and the causal IN TCN groups go through the hand-written
+kernels, on ``"cpu"`` through their plain versions. Like the JAX
+package's, the Enhancer applies params only, so batch-norm models are not
+served.
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ class Enhancer:
             raise NotImplementedError(
                 "mesh / shard_freq: multi-card serving is a later slice of "
                 "the port")
+        if "BN" in (cfg.model.eabnet.norm_type, cfg.model.gagnet.norm_type):
+            raise NotImplementedError(
+                "norm_type='BN': the Enhancer applies params only, as the "
+                "JAX package's does, and has no running statistics to serve "
+                "a batch-norm model with")
         self.cfg = cfg
         self.output = output
         self.pad_mode = pad_mode

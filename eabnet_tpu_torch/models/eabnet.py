@@ -15,7 +15,10 @@ from torch import nn
 from eabnet_tpu_torch.config import EaBNetConfig, require_slice
 from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
 from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
-                                        U2NetDecoder, U2NetEncoder)
+                                        U2NetDecoder, U2NetEncoder,
+                                        UNetDecoder, UNetEncoder)
+from eabnet_tpu_torch.nn.lstm import step_carried
+from eabnet_tpu_torch.nn.stepping import current
 
 
 def to_reference_layout(esti: torch.Tensor) -> torch.Tensor:
@@ -51,7 +54,9 @@ class _ScaleBias(nn.Module):
 class LSTMBeamformer(nn.Module):
     """LSTM beamforming-weight head: LayerNorm over the embedding, every
     (item, frequency) pair an independent lane, two stacked LSTMs over
-    time (the LSTM-BF kernel), then fc1 / ReLU / fc2 -> (B, T, F, M, 2)."""
+    time (the LSTM-BF kernel; inside ``stepping.stepping`` one frame of
+    each layer from its carried state), then fc1 / ReLU / fc2 -> (B, T,
+    F, M, 2)."""
 
     def __init__(self, embed_dim: int, M: int, hid_node: int = 64):
         super().__init__()
@@ -69,9 +74,15 @@ class LSTMBeamformer(nn.Module):
         x = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
         x = F.layer_norm(x, (c,), self.norm.scale, self.norm.bias, eps=1e-5)
         r1, r2 = self.rnn1, self.rnn2
-        # hoisted layer-1 input projection, time-major for the kernel
-        xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).transpose(0, 1).contiguous()
-        h2 = double_lstm(xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
+        fr = current()
+        if fr is not None:  # one frame: (1, L, H)
+            h2 = step_carried(fr, r2, step_carried(fr, r1, x[:, 0]))[None]
+        else:
+            # hoisted layer-1 input projection, time-major for the kernel
+            xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).transpose(
+                0, 1).contiguous()
+            h2 = double_lstm(xw1, r1.w_hh, r2.w_ih, r2.w_hh,
+                             r2.b_ih + r2.b_hh)
         y = self.fc2(torch.relu(self.fc1(h2.transpose(0, 1))))  # (L, T, 2M)
         return y.reshape(b, f, t, self.M, 2).permute(0, 2, 1, 3, 4)
 
@@ -85,21 +96,29 @@ def beamform_sum(bf_w: torch.Tensor, inpt: torch.Tensor) -> torch.Tensor:
 
 
 class EaBNet(nn.Module):
-    """Embedding-and-beamforming network."""
+    """Embedding-and-beamforming network. Its norms take batch statistics
+    only in training mode (``module.train()``), as the JAX package's do
+    under ``train=True``."""
 
     def __init__(self, cfg: EaBNetConfig):
         super().__init__()
         require_slice(cfg)
         self.cfg = cfg
-        self.en = U2NetEncoder(2 * cfg.M, cfg.c, cfg.k1, cfg.k2,
-                               cfg.intra_connect, cfg.norm_type)
+        if cfg.is_u2:
+            self.en = U2NetEncoder(2 * cfg.M, cfg.c, cfg.k1, cfg.k2,
+                                   cfg.intra_connect, cfg.norm_type)
+        else:
+            self.en = UNetEncoder(2 * cfg.M, cfg.c, cfg.k1, cfg.norm_type)
         for i in range(cfg.q):
             self.add_module(f"stcn_{i}", SqueezedTCNGroup(
                 cfg.kd1, cfg.cd1, cfg.d_feat,
                 tuple(2 ** j for j in range(cfg.p)), cfg.is_causal,
                 cfg.norm_type, twin_gate=True))
-        self.de = U2NetDecoder(cfg.embed_dim, cfg.c, cfg.k1, cfg.k2,
-                               cfg.intra_connect, cfg.norm_type)
+        if cfg.is_u2:
+            self.de = U2NetDecoder(cfg.embed_dim, cfg.c, cfg.k1, cfg.k2,
+                                   cfg.intra_connect, cfg.norm_type)
+        else:
+            self.de = UNetDecoder(cfg.embed_dim, cfg.c, cfg.k1, cfg.norm_type)
         self.bf_map = LSTMBeamformer(cfg.embed_dim, cfg.M, cfg.hid_node)
 
     def forward(self, inpt: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from eabnet_tpu_torch.config import GaGNetConfig, require_slice
-from eabnet_tpu_torch.nn.blocks import Dense, SqueezedTCNGroup, U2NetEncoder
+from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
+                                        U2NetEncoder, UNetEncoder)
 
 
 def _flatten_spec(x: torch.Tensor) -> torch.Tensor:
@@ -118,8 +119,12 @@ class GaGNet(nn.Module):
         super().__init__()
         require_slice(cfg)
         self.cfg = cfg
-        self.en = U2NetEncoder(2 * cfg.cin, cfg.c, cfg.k1, cfg.k2,
-                               cfg.intra_connect, cfg.norm_type)
+        if cfg.is_u2:
+            self.en = U2NetEncoder(2 * cfg.cin, cfg.c, cfg.k1, cfg.k2,
+                                   cfg.intra_connect, cfg.norm_type)
+        else:  # GaGNet's plain encoder norms all five stages
+            self.en = UNetEncoder(2 * cfg.cin, cfg.c, cfg.k1, cfg.norm_type,
+                                  norm_stages=(True,) * 5)
         for i in range(cfg.q):
             self.add_module(f"gag_{i}", GlanceGazeModule(cfg))
 

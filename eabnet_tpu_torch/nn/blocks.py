@@ -5,7 +5,8 @@ axis and frequency the only downsampled one. The squeezed TCN runs on
 ``(B, T, D)`` frame vectors, the layout of the TCM-chain kernel. Module and
 parameter names follow the JAX package's parameter tree so that
 ``weights.load_jax_params`` maps one onto the other by name; the layouts
-are PyTorch's (see ``weights.py``).
+are PyTorch's (see ``weights.py``). Inside ``stepping.stepping`` the
+time convs take one frame and a ring of the frames before it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 
 from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
 from eabnet_tpu_torch.nn.norms import NormSwitch, PReLU
+from eabnet_tpu_torch.nn.stepping import current
 
 
 class Dense(nn.Module):
@@ -48,6 +50,10 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kt = self.kernel.shape[2]
+        fr = current()
+        if fr is not None:  # one frame, on the ring of the kt - 1 before
+            return F.conv2d(fr.ring(self, x, kt - 1), self.kernel,
+                            self.bias, self.stride)
         y = F.conv2d(x, self.kernel, self.bias, self.stride,
                      padding=(kt - 1, 0))
         return y[:, :, :x.shape[2]]
@@ -66,6 +72,14 @@ class ConvTranspose2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fr = current()
+        if fr is not None:
+            # one frame: the conv of its kt-frame window, whose output
+            # frame kt - 1 is the offline output at the window's last frame
+            kt = self.kernel.shape[2]
+            y = F.conv_transpose2d(fr.ring(self, x, kt - 1), self.kernel,
+                                   self.bias, self.stride)
+            return y[:, :, kt - 1:kt]
         y = F.conv_transpose2d(x, self.kernel, self.bias, self.stride)
         return y[:, :, :x.shape[2]]
 
@@ -84,6 +98,10 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         full = (self.kernel.shape[2] - 1) * self.dilation
+        fr = current()
+        if fr is not None:  # one frame of a causal conv
+            return F.conv1d(fr.ring(self, x, full), self.kernel,
+                            dilation=self.dilation)
         pad = full if self.causal else full // 2
         y = F.conv1d(x, self.kernel, padding=pad, dilation=self.dilation)
         return y[:, :, :x.shape[2]]
@@ -220,14 +238,68 @@ class U2NetDecoder(nn.Module):
         return self.last_act(self.last_norm(self.last_conv(x)))
 
 
+class UNetEncoder(nn.Module):
+    """Plain 5-stage gated-conv encoder (freq 161 -> 79 -> 39 -> 19 -> 9
+    -> 4). ``norm_stages`` marks the stages that carry a norm: EaBNet's
+    copy has none on stages 1 and 2, GaGNet's norms all five. Returns
+    (features, skip list)."""
+
+    def __init__(self, cin: int, c: int, k1, norm_type: str, c_end: int = 64,
+                 k_beg=(2, 5),
+                 norm_stages: Sequence[bool] = (True, False, False, True,
+                                                True)):
+        super().__init__()
+        self.norm_stages = tuple(norm_stages)
+        for i in range(5):
+            ch = c_end if i == 4 else c
+            self.add_module(f"conv_{i}", GateConv2d(
+                cin if i == 0 else c, ch, k_beg if i == 0 else k1, (1, 2)))
+            if self.norm_stages[i]:
+                self.add_module(f"norm_{i}", NormSwitch(norm_type, ch))
+            self.add_module(f"act_{i}", PReLU(ch))
+
+    def forward(self, x: torch.Tensor):
+        skips = []
+        for i in range(5):
+            x = getattr(self, f"conv_{i}")(x)
+            if self.norm_stages[i]:
+                x = getattr(self, f"norm_{i}")(x)
+            x = getattr(self, f"act_{i}")(x)
+            skips.append(x)
+        return x, skips
+
+
+class UNetDecoder(nn.Module):
+    """Mirror of UNetEncoder: gated transposed convs on skip-cat inputs,
+    every stage normed."""
+
+    def __init__(self, embed_dim: int, c: int, k1, norm_type: str,
+                 c_end: int = 64, k_end=(2, 5)):
+        super().__init__()
+        for i in range(5):
+            ch = embed_dim if i == 4 else c
+            self.add_module(f"conv_{i}", GateConvTranspose2d(
+                2 * c_end if i == 0 else 2 * c, ch, k_end if i == 4 else k1,
+                (1, 2)))
+            self.add_module(f"norm_{i}", NormSwitch(norm_type, ch))
+            self.add_module(f"act_{i}", PReLU(ch))
+
+    def forward(self, x: torch.Tensor, skips) -> torch.Tensor:
+        for i in range(5):
+            x = torch.cat([x, skips[-(i + 1)]], dim=1)
+            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"act_{i}")(getattr(self, f"norm_{i}")(x))
+        return x
+
+
 class SqueezedTCM(nn.Module):
     """Squeezed temporal conv module on (B, T, D) frame vectors.
 
     ``twin_gate=True`` (EaBNet): 1x1 in-conv, two PReLU -> norm -> dilated
     conv branches, ``left * sigmoid(right)``; ``twin_gate=False`` (GaGNet):
-    one branch. Then PReLU -> norm -> 1x1 out-conv and the residual. The
-    module form of one TCM; ``SqueezedTCNGroup`` runs whole chains of them
-    through the TCM-chain kernel.
+    one branch. Then PReLU -> norm -> 1x1 out-conv and the residual.
+    ``SqueezedTCNGroup`` runs causal IN chains of them through the
+    TCM-chain kernel, and every other chain module by module.
     """
 
     def __init__(self, kd1: int, cd1: int, d_feat: int, dilation: int,
@@ -255,18 +327,18 @@ class SqueezedTCM(nn.Module):
 
 
 class SqueezedTCNGroup(nn.Module):
-    """A chain of SqueezedTCMs with the given dilations, run as one call of
-    the TCM-chain kernel wrapper (``kernels/tcm_chain.py``): the kernel on
-    a CUDA tensor, its plain version on a CPU tensor."""
+    """A chain of SqueezedTCMs with the given dilations. A causal IN group
+    runs as one call of the TCM-chain kernel wrapper
+    (``kernels/tcm_chain.py``): the kernel on a CUDA tensor, its plain
+    version on a CPU tensor. Any other group runs its TCM modules one by
+    one on every device, as the JAX package routes it (its kernel covers
+    causal IN only); the configuration fixes the route, not the device."""
 
     def __init__(self, kd1: int, cd1: int, d_feat: int,
                  dilations: Sequence[int], is_causal: bool = True,
                  norm_type: str = "IN", twin_gate: bool = True):
         super().__init__()
-        if not is_causal:
-            raise NotImplementedError(
-                "is_causal=False: the TCM-chain kernel is causal; the "
-                "non-causal TCN is a later slice of the port")
+        self.chain = norm_type == "IN" and is_causal
         self.dilations = tuple(int(d) for d in dilations)
         self.twin_gate = twin_gate
         for i, d in enumerate(self.dilations):
@@ -299,5 +371,9 @@ class SqueezedTCNGroup(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return tcm_chain(x.contiguous(), self.stacked_weights(),
-                         self.dilations, self.twin_gate)
+        if self.chain:
+            return tcm_chain(x.contiguous(), self.stacked_weights(),
+                             self.dilations, self.twin_gate)
+        for i in range(len(self.dilations)):
+            x = getattr(self, f"tcm_{i}")(x)
+        return x

@@ -1,9 +1,13 @@
-"""PReLU and instance norm on channel-first maps (B, C, *spatial)."""
+"""PReLU and the four norms of the block library on channel-first maps
+(B, C, T, *rest): time is dim 2, channels dim 1."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from eabnet_tpu_torch.nn.stepping import Frame, current
 
 
 def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -19,13 +23,14 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((features,), init_slope))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_grad_enabled():  # the same values in one launch
+            return F.prelu(x, self.alpha)
         return torch.clamp(x, min=0) + _bcast(self.alpha, x.dim()) * \
             torch.clamp(x, max=0)
 
 
-class InstanceNorm(nn.Module):
-    """Affine instance norm over all axes but (B, C): per-sample,
-    per-channel statistics, biased variance, eps inside the sqrt."""
+class _Affine(nn.Module):
+    """The per-channel ``scale`` and ``bias`` every norm ends with."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -33,26 +38,139 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    def affine(self, y: torch.Tensor) -> torch.Tensor:
+        return y * _bcast(self.scale, y.dim()) + _bcast(self.bias, y.dim())
+
+
+class InstanceNorm(_Affine):
+    """Affine instance norm over all axes but (B, C): per-sample,
+    per-channel statistics, biased variance, eps inside the sqrt."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(2, x.dim()))
         mean = x.mean(dim=axes, keepdim=True)
         var = torch.square(x - mean).mean(dim=axes, keepdim=True)
-        y = (x - mean) / torch.sqrt(var + self.eps)
-        return y * _bcast(self.scale, x.dim()) + _bcast(self.bias, x.dim())
+        return self.affine((x - mean) / torch.sqrt(var + self.eps))
+
+
+class CumulativeLayerNorm(_Affine):
+    """Strictly causal cumulative layer norm: frame t is normalised with
+    the statistics of channels (and every dim after time) over frames
+    0..t, kept as float32 cumulative sums; the variance is clamped at 0.
+    With ``prior`` one virtual zero-mean, unit-variance frame (as many
+    pseudo elements as a frame has) joins the statistics (the JAX
+    package's "cLN", which bounds 1/sigma at the first frames); without
+    it, the reference's cumulative norm ("cLN-ref"). A stream's step
+    (``stepping.py``) carries (count, sum, sum of squares) per item."""
+
+    def __init__(self, features: int, eps: float = 1e-5, prior: bool = True):
+        super().__init__(features, eps)
+        self.prior = prior
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fr = current()
+        if fr is not None:
+            return self._step(fr, x)
+        red = (1,) + tuple(range(3, x.dim()))
+        n_per_step = x.numel() // (x.shape[0] * x.shape[2])
+        pr = float(n_per_step) if self.prior else 0.0
+        xf = x.float()
+        shape = (x.shape[0], 1, x.shape[2]) + (1,) * (x.dim() - 3)
+        total = torch.cumsum(xf.sum(dim=red), dim=1).view(shape)
+        sq = (torch.cumsum(torch.square(xf).sum(dim=red), dim=1) + pr
+              ).view(shape)
+        count = (torch.arange(1, x.shape[2] + 1, dtype=torch.float32,
+                              device=x.device) * n_per_step + pr
+                 ).view((1, 1, -1) + (1,) * (x.dim() - 3))
+        mean = total / count
+        var = torch.clamp(sq / count - torch.square(mean), min=0.0)
+        y = ((xf - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
+        return self.affine(y)
+
+    def _step(self, fr: Frame, x: torch.Tensor) -> torch.Tensor:
+        """One frame (B, C, 1, ...): the carried (count, sum, sum of
+        squares) per item, (B, 3), start from the prior's pseudo elements.
+        A stream's step is host-bound (hundreds of norms a frame), so this
+        takes few ops: both sums in one reduction, the normalisation as
+        one inference-mode batch norm whose channels are the items."""
+        b = x.shape[0]
+        xf = x.reshape(b, -1)
+        n_new = xf.shape[1]  # F * C of a 2-D frame
+        pr = float(n_new) if self.prior else 0.0
+        stats = fr.carried(self, "stats", lambda: x.new_tensor(
+            [pr, 0.0, pr]).repeat(b, 1)) + F.pad(
+            torch.stack([xf, xf * xf], dim=1).sum(dim=2), (1, 0),
+            value=float(n_new))
+        fr.keep(self, "stats", stats)
+        count, total, sq = stats.unbind(1)
+        mean = total / count
+        var = torch.addcmul(sq / count, mean, mean,
+                            value=-1.0).clamp_(min=0.0)
+        y = F.batch_norm(xf.unsqueeze(0), mean, var, eps=self.eps).view_as(x)
+        return torch.addcmul(_bcast(self.bias, x.dim()), y,
+                             _bcast(self.scale, x.dim()))
+
+
+class BatchNorm(_Affine):
+    """flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``: statistics over
+    every dim but the channels. In training (``module.train()``) it
+    normalises with the batch's mean and biased variance (E[x^2] - E[x]^2,
+    clamped at 0, in float32) and moves the running statistics by
+    ``ra = 0.9 ra + 0.1 batch``; in evaluation it reads them. They are the
+    buffers ``mean`` and ``var``, flax's ``batch_stats`` collection.
+    (``torch.nn.BatchNorm`` updates with the unbiased variance, and its
+    momentum is the other share.)"""
+
+    momentum = 0.9
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps)
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(torch.square(xf).mean(dim=axes)
+                              - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(
+                    (1 - self.momentum) * mean.detach())
+                self.var.mul_(self.momentum).add_(
+                    (1 - self.momentum) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        return self.frozen(x, mean, var)
+
+    def frozen(self, x: torch.Tensor, mean: torch.Tensor,
+               var: torch.Tensor) -> torch.Tensor:
+        """Normalise with the given statistics: flax's ``(x - mean) *
+        (rsqrt(var + eps) * scale) + bias``."""
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - _bcast(mean, x.dim())) * _bcast(mul, x.dim()) + \
+            _bcast(self.bias, x.dim())
+
+
+NORMS = {
+    "IN": InstanceNorm,
+    "cLN": CumulativeLayerNorm,
+    "cLN-ref": lambda c: CumulativeLayerNorm(c, prior=False),
+    "BN": BatchNorm,
+}
 
 
 class NormSwitch(nn.Module):
-    """The norm selector of the block library. This slice runs IN only;
-    the norm sits one level down under the name ``norm``, as in the JAX
-    package's parameter tree."""
+    """The norm selector of the block library: "IN", "cLN" (with the
+    virtual-frame prior), "cLN-ref" (without) or "BN". The norm sits one
+    level down under the name ``norm``, as in the JAX package's trees."""
 
     def __init__(self, norm_type: str, features: int):
         super().__init__()
-        if norm_type != "IN":
-            raise NotImplementedError(
-                f"norm_type={norm_type!r}: the port runs 'IN' only; cLN "
-                "and BN are later slices of the port")
-        self.norm = InstanceNorm(features)
+        if norm_type not in NORMS:
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.norm = NORMS[norm_type](features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)

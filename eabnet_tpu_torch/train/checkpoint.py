@@ -1,10 +1,10 @@
 """Training checkpoints in the JAX package's format.
 
 ``<iter>.ckpt`` is the flax state dict of the JAX package's ``TrainState``
-(step, params, optax ``chain(clip_by_global_norm, adam)`` state, empty
-batch stats) plus the epoch, msgpack-encoded, written atomically beside a
-frozen ``config.json``; ``<iter>.params`` holds the params alone. Both
-packages read each other's files: the port writes the JAX parameter layout
+(step, params, optax ``chain(clip_by_global_norm, adam)`` state, the
+batch norms' running statistics) plus the epoch, msgpack-encoded, written
+atomically beside a frozen ``config.json``; ``<iter>.params`` holds the
+params alone. Both packages read each other's files: the port writes the JAX parameter layout
 (``weights.to_jax_tree``) and reads it back (``weights.from_jax_tree``).
 Reference ``.pth`` checkpoints are not read by the port.
 """
@@ -22,7 +22,8 @@ from eabnet_tpu_torch.checkpoint import (latest_checkpoint, load_params,
                                          msgpack_restore, msgpack_serialize,
                                          write_atomic)
 from eabnet_tpu_torch.config import ExperimentConfig
-from eabnet_tpu_torch.weights import (from_jax_tree, load_jax_params,
+from eabnet_tpu_torch.weights import (from_jax_tree, load_jax_batch_stats,
+                                      load_jax_params, to_jax_batch_stats,
                                       to_jax_params, to_jax_tree)
 
 __all__ = ["latest_checkpoint", "load_checkpoint", "load_config",
@@ -42,7 +43,7 @@ def state_dict(state, epoch: int) -> dict:
                       "mu": to_jax_tree(model, opt.mu),
                       "nu": to_jax_tree(model, opt.nu)},
                 "1": {}}},
-            "batch_stats": {},
+            "batch_stats": to_jax_batch_stats(model),
         },
         "epoch": np.int64(epoch),
     }
@@ -68,7 +69,8 @@ def save_params(model: torch.nn.Module, directory: str, step: int) -> str:
 def load_checkpoint(path: str, state, cfg: ExperimentConfig) -> Tuple:
     """Restore (state, epoch) in place from ``<iter>.ckpt``, or the params
     of ``<iter>.params`` with the step from the file name, the optimizer
-    left as given (fresh) and epoch 0. ``.pth`` raises."""
+    and batch statistics left as given (fresh) and epoch 0. ``.pth``
+    raises."""
     del cfg  # the JAX signature; the port needs no config to read a file
     if path.endswith(".pth"):
         raise NotImplementedError(
@@ -83,6 +85,7 @@ def load_checkpoint(path: str, state, cfg: ExperimentConfig) -> Tuple:
         tree = msgpack_restore(f.read())
     saved = tree["state"]
     load_jax_params(state.model, saved["params"])
+    load_jax_batch_stats(state.model, saved["batch_stats"])
     adam = saved["opt_state"]["1"]["0"]
     opt = state.opt_state
     device = next(state.model.parameters()).device

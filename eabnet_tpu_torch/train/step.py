@@ -6,7 +6,10 @@ the composite loss on ``final`` under the per-item frame mask, gradients,
 clip by global norm, Adam. The optimizer is written out over the model's
 named parameters, as optax's ``chain(clip_by_global_norm(c), adam(lr))``
 computes it, so its state maps one to one onto the JAX checkpoint
-(count, mu, nu). Parameters are updated in place.
+(count, mu, nu). Parameters are updated in place. The train step runs the
+model in training mode, where batch norms normalise with the batch's
+statistics and move their running ones (the buffers that the checkpoint
+writes as ``batch_stats``); the eval step reads them in evaluation mode.
 """
 
 from __future__ import annotations

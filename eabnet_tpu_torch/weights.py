@@ -15,6 +15,10 @@ layouts differ, by the type of the module that owns the parameter:
 as Adam's moments) is the inverse: the module's parameters as a flax
 tree in the JAX layout, exact to the bit.
 
+flax's ``batch_stats`` collection (the running ``mean`` and ``var`` of the
+batch norms) maps onto the modules' buffers by the same names, with no
+layout change: ``load_jax_batch_stats`` and ``to_jax_batch_stats``.
+
 The channel folds of the JAX package (mic-major input channels, the
 (freq, channel) bottleneck order) are kept by the models themselves.
 """
@@ -64,6 +68,15 @@ def flatten_tree(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _same_keys(what: str, module_keys, flat) -> None:
+    missing = sorted(module_keys.keys() - flat.keys())
+    unused = sorted(flat.keys() - module_keys.keys())
+    if missing or unused:
+        raise KeyError(f"{what} tree does not match the module: missing "
+                       f"{missing[:5]} ({len(missing)}), unused "
+                       f"{unused[:5]} ({len(unused)})")
+
+
 def from_jax_tree(module: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
     """A flax tree keyed like ``module``'s parameters (the params, or
     per-parameter state such as Adam's moments) -> {parameter name: array
@@ -74,12 +87,7 @@ def from_jax_tree(module: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
     """
     flat = flatten_tree(tree)
     params = dict(module.named_parameters())
-    missing = sorted(params.keys() - flat.keys())
-    unused = sorted(flat.keys() - params.keys())
-    if missing or unused:
-        raise KeyError(f"param tree does not match the module: missing "
-                       f"{missing[:5]} ({len(missing)}), unused "
-                       f"{unused[:5]} ({len(unused)})")
+    _same_keys("param", params, flat)
     out = {}
     for name, p in params.items():
         arr = _layout(module, name, _KERNEL_LAYOUT)(flat[name])
@@ -100,17 +108,10 @@ def load_jax_params(module: nn.Module, tree: Dict) -> nn.Module:
     return module
 
 
-def to_jax_tree(module: nn.Module,
-                tensors: Mapping[str, torch.Tensor]) -> Dict:
-    """{parameter name: tensor in the module's layout} -> a nested flax
-    tree of numpy arrays (copies) in the JAX layout, in the module's
-    parameter order."""
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict:
+    """{"a.b": x} -> {"a": {"b": x}}, in the given order."""
     tree: Dict = {}
-    for name, _ in module.named_parameters():
-        arr = tensors[name].detach().cpu().numpy()
-        # a copy: the numpy view of a CPU tensor would follow later
-        # in-place updates of the parameter
-        arr = np.array(_layout(module, name, _JAX_LAYOUT)(arr), order="C")
+    for name, arr in flat.items():
         *path, leaf = name.split(".")
         node = tree
         for key in path:
@@ -119,7 +120,43 @@ def to_jax_tree(module: nn.Module,
     return tree
 
 
+def to_jax_tree(module: nn.Module,
+                tensors: Mapping[str, torch.Tensor]) -> Dict:
+    """{parameter name: tensor in the module's layout} -> a nested flax
+    tree of numpy arrays (copies) in the JAX layout, in the module's
+    parameter order."""
+    # copies: the numpy view of a CPU tensor would follow later in-place
+    # updates of the parameter
+    return _nest({name: np.array(_layout(module, name, _JAX_LAYOUT)(
+        tensors[name].detach().cpu().numpy()), order="C")
+        for name, _ in module.named_parameters()})
+
+
 def to_jax_params(module: nn.Module) -> Dict:
     """The module's parameters as a flax param tree (the inverse of
     ``load_jax_params``)."""
     return to_jax_tree(module, dict(module.named_parameters()))
+
+
+def load_jax_batch_stats(module: nn.Module, tree: Dict) -> nn.Module:
+    """Copy flax's ``batch_stats`` collection into ``module``'s buffers
+    (the batch norms' running ``mean`` and ``var``); raises on a buffer
+    the tree lacks, a leaf no buffer takes, or another shape."""
+    flat = flatten_tree(tree)
+    buffers = dict(module.named_buffers())
+    _same_keys("batch_stats", buffers, flat)
+    for name, b in buffers.items():
+        if tuple(flat[name].shape) != tuple(b.shape):
+            raise ValueError(f"{name}: tree shape {flat[name].shape} does "
+                             f"not match the module's {tuple(b.shape)}")
+    with torch.no_grad():
+        for name, b in buffers.items():
+            b.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
+    return module
+
+
+def to_jax_batch_stats(module: nn.Module) -> Dict:
+    """The module's buffers as flax's ``batch_stats`` tree ({} for a model
+    without batch norms), exact to the bit."""
+    return _nest({name: b.detach().cpu().numpy().copy()
+                  for name, b in module.named_buffers()})

@@ -15,7 +15,8 @@ from eabnet_tpu.nn import blocks as jb
 from eabnet_tpu.nn import norms as jn
 from eabnet_tpu_torch.nn import blocks as tb
 from eabnet_tpu_torch.nn import norms as tn
-from eabnet_tpu_torch.weights import load_jax_params
+from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
+from eabnet_tpu_torch.weights import load_jax_batch_stats, load_jax_params
 
 ATOL = 1e-5
 
@@ -71,10 +72,26 @@ def test_instance_norm_matches(shape):
 
 
 def test_norm_switch_refuses_other_norms():
-    tn.NormSwitch("IN", 4)
-    for norm in ("cLN", "cLN-ref", "BN"):
-        with pytest.raises(NotImplementedError):
-            tn.NormSwitch(norm, 4)
+    """The selector builds each of the four norms, each as flax's selector
+    computes it (BN in evaluation, with running statistics), and refuses
+    a name it does not know, as flax's does."""
+    x = data((2, 9, 7, 6), scale=3.0) + 1.5
+    params = {"norm": {"scale": np.linspace(0.5, 2, 6, dtype=np.float32),
+                       "bias": np.linspace(-1, 1, 6, dtype=np.float32)}}
+    stats = {"norm": {"mean": np.linspace(-1, 1, 6, dtype=np.float32),
+                      "var": np.linspace(0.5, 3, 6, dtype=np.float32)}}
+    for norm in ("IN", "cLN", "cLN-ref", "BN"):
+        variables = {"params": params}
+        tmod = load_jax_params(tn.NormSwitch(norm, 6), params)
+        if norm == "BN":
+            variables["batch_stats"] = stats
+            load_jax_batch_stats(tmod, stats).eval()
+        ref = np.asarray(jn.NormSwitch(norm, 6).apply(variables, x))
+        with torch.no_grad():
+            out = tmod(torch.from_numpy(x).movedim(-1, 1)).movedim(1, -1)
+        np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, err_msg=norm)
+    with pytest.raises(ValueError, match="unknown norm_type"):
+        tn.NormSwitch("GN", 4)
 
 
 @pytest.mark.parametrize("kernel", [(2, 3), (2, 5), (1, 3)])
@@ -159,8 +176,65 @@ def test_squeezed_tcn_group_matches(twin, kd1, dils):
 
 
 def test_tcn_group_refuses_non_causal():
-    with pytest.raises(NotImplementedError):
-        tb.SqueezedTCNGroup(3, 8, 16, (1, 2), is_causal=False)
+    """The TCM-chain route takes causal IN groups only: a non-causal group
+    (centred dilated convs, flax's (full // 2, full // 2) pad) runs its
+    TCM modules one by one, as the JAX package routes it, and matches the
+    flax chain."""
+    group = tb.SqueezedTCNGroup(3, 16, 32, (1, 2, 5), is_causal=False,
+                                twin_gate=False)
+    assert not group.chain
+    before = tcm_chain.launches
+    run_both(jb.SqueezedTCNGroup(3, 16, 32, (1, 2, 5), is_causal=False,
+                                 twin_gate=False), group,
+             data((2, 23, 32), seed=2), atol=2e-5, channel_first=False)
+    assert tcm_chain.launches == before
+
+
+@pytest.mark.parametrize("norm", ["cLN", "cLN-ref"])
+@pytest.mark.parametrize("twin,kd1,dils", [(True, 5, (1, 2, 4)),
+                                          (False, 3, (1, 2, 5, 9))],
+                         ids=["twin", "single"])
+def test_cln_tcn_group_matches(norm, twin, kd1, dils):
+    """A cLN group takes the per-TCM route on every device."""
+    group = tb.SqueezedTCNGroup(kd1, 64, 128, dils, norm_type=norm,
+                                twin_gate=twin)
+    assert not group.chain
+    run_both(jb.SqueezedTCNGroup(kd1, 64, 128, dils, norm_type=norm,
+                                 twin_gate=twin), group,
+             data((2, 33, 128), seed=3), atol=2e-5, channel_first=False)
+
+
+@pytest.mark.parametrize("norm_stages", [(True, False, False, True, True),
+                                         (True,) * 5],
+                         ids=["eabnet", "gagnet"])
+def test_unet_encoder_decoder_match(norm_stages):
+    """The plain UNet at F=161 (-> 4 bins) with either copy's normed
+    stages, then the decoder on its skips, cLN throughout."""
+    x = data((1, 4, 161, 6), scale=0.5)
+    jen = jb.UNetEncoder(8, (2, 3), "cLN", c_end=12, norm_stages=norm_stages)
+    ten = tb.UNetEncoder(6, 8, (2, 3), "cLN", c_end=12,
+                         norm_stages=norm_stages)
+    v_en = jen.init(jax.random.key(1), x)
+    feat, skips = jen.apply(v_en, x)
+    load_jax_params(ten, jax.tree.map(np.asarray, v_en["params"]))
+    with torch.no_grad():
+        tfeat, tskips = ten(torch.from_numpy(x).movedim(-1, 1))
+    assert len(tskips) == len(skips) == 5
+    for a, b in zip([tfeat] + tskips, [feat] + list(skips)):
+        np.testing.assert_allclose(a.movedim(1, -1).numpy(), np.asarray(b),
+                                   atol=ATOL)
+    assert sum(n.startswith("norm_") for n, _ in ten.named_children()) == \
+        sum(norm_stages)
+
+    jde = jb.UNetDecoder(10, 8, (2, 3), "cLN")
+    tde = tb.UNetDecoder(10, 8, (2, 3), "cLN", c_end=12)
+    v_de = jde.init(jax.random.key(2), feat, skips)
+    ref = np.asarray(jde.apply(v_de, feat, skips))
+    load_jax_params(tde, jax.tree.map(np.asarray, v_de["params"]))
+    with torch.no_grad():
+        out = tde(tfeat, tskips).movedim(1, -1).numpy()
+    assert out.shape == ref.shape == (1, 4, 161, 10)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
 
 
 def test_load_jax_params_refuses_partial_trees():

@@ -2,6 +2,7 @@
 option handling, and the command line on a short synthetic 9-mic wav with
 the release model."""
 
+import json
 import os
 import subprocess
 import sys
@@ -11,10 +12,23 @@ import pytest
 
 from eabnet_tpu_torch.config import ExperimentConfig
 from eabnet_tpu_torch.inference import Enhancer, load_enhancer
+from eabnet_tpu_torch.nn.blocks import SqueezedTCNGroup
 from eabnet_tpu_torch.utils.audio_io import read_wav, write_wav
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP = os.path.join(ROOT, "release", "composed_9mic")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the port: on a host that other test workers
+    load, more threads mostly wait on each other."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -72,11 +86,24 @@ def test_options_outside_the_slice_are_refused():
 
 
 def test_cln_release_is_refused_not_rerouted():
-    """release/eabnet_9mic_cln loads its config, then refuses to build:
-    cLN is a later slice of the port."""
-    with pytest.raises(NotImplementedError, match="cLN"):
-        load_enhancer(os.path.join(ROOT, "release", "eabnet_9mic_cln"),
-                      device="cpu")
+    """release/eabnet_9mic_cln loads and enhances on the CPU, its cLN TCN
+    groups on the per-TCM route (the TCM-chain kernel takes causal IN
+    only), while its config with batch norms is refused by the Enhancer
+    (it applies params only, as the JAX package's does), not rerouted."""
+    cln = os.path.join(ROOT, "release", "eabnet_9mic_cln")
+    enh = load_enhancer(cln, output="esti0", device="cpu")
+    groups = [m for m in enh.model.modules()
+              if isinstance(m, SqueezedTCNGroup)]
+    assert len(groups) == 3 + 3 * 2 * 3 and not any(g.chain for g in groups)
+    x = noisy(6000, 8)
+    out = enh(x)
+    assert out.shape == (6000,) and np.isfinite(out).all()
+    assert np.std(out) > 0
+    d = json.loads(ExperimentConfig.load(
+        os.path.join(cln, "config.json")).to_json())
+    d["model"]["gagnet"]["norm_type"] = "BN"
+    with pytest.raises(NotImplementedError, match="BN"):
+        Enhancer(ExperimentConfig.from_dict(d), {}, device="cpu")
 
 
 def test_cli_enhances_a_short_wav(tmp_path, enhancer):
@@ -113,8 +140,9 @@ def test_entry_points_default_to_the_card():
     """The device is the caller's choice, the card unless asked."""
     import inspect
 
-    from eabnet_tpu_torch.cli.enhance import main
+    from eabnet_tpu_torch.cli import enhance, stream
 
     for fn in (Enhancer, load_enhancer):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert "default: cuda" in inspect.getsource(main)
+    for cli in (enhance, stream):
+        assert "default: cuda" in inspect.getsource(cli.main)

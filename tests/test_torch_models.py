@@ -19,7 +19,7 @@ from eabnet_tpu.models import GaGNet as JGaGNet
 from eabnet_tpu_torch.config import (ComposedConfig, EaBNetConfig,
                                      GaGNetConfig)
 from eabnet_tpu_torch.models import EaBNet, EaBNetWithPostNet, GaGNet
-from eabnet_tpu_torch.weights import load_jax_params
+from eabnet_tpu_torch.weights import load_jax_batch_stats, load_jax_params
 
 ATOL = 2e-4
 B, T, F, M = 2, 13, 161, 3
@@ -112,6 +112,60 @@ def test_composed_matches_flax():
                                    atol=ATOL)
     assert len(ours["esti1"]) == GAG["q"]
     assert ours["esti"] is ours["esti1"][-1]
+
+
+VARIANTS = [dict(norm_type="cLN"), dict(norm_type="cLN-ref", is_u2=False),
+            dict(norm_type="BN"), dict(norm_type="BN", is_u2=False),
+            dict(norm_type="cLN", is_causal=False)]
+VARIANT_IDS = ["cln", "clnref-unet", "bn", "bn-unet", "cln-noncausal"]
+
+
+def variables_of(model, *args):
+    """flax init; batch norms get seeded running statistics."""
+    v = jax.tree.map(np.asarray, model.init(jax.random.key(0), *args))
+    rng = np.random.default_rng(7)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, a: (rng.uniform(0.5, 1.5, a.shape) if
+                         path[-1].key == "var" else
+                         rng.uniform(-0.2, 0.2, a.shape)).astype(np.float32),
+        v.get("batch_stats", {}))
+    return v["params"], stats
+
+
+def port_model(model, params, stats):
+    load_jax_batch_stats(load_jax_params(model, params), stats)
+    return model.eval()
+
+
+@pytest.mark.parametrize("kw", VARIANTS, ids=VARIANT_IDS)
+def test_eabnet_variants_match_flax(kw):
+    """cLN, cLN-ref and BN (evaluation, running statistics), the plain
+    UNet and the non-causal TCN."""
+    x = inputs(5)
+    jm = JEaBNet(JEaB(**EAB, **kw))
+    params, stats = variables_of(jm, x)
+    ref = np.asarray(jm.apply({"params": params, "batch_stats": stats}, x)
+                     if stats else jm.apply({"params": params}, x))
+    tm = port_model(EaBNet(EaBNetConfig(**EAB, **kw)), params, stats)
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", VARIANTS, ids=VARIANT_IDS)
+def test_gagnet_variants_match_flax(kw):
+    x = inputs(6)
+    spec, pre = x[..., 0, :], x[..., 1, :]
+    jm = JGaGNet(JGaG(**GAG, **kw))
+    params, stats = variables_of(jm, spec, pre)
+    variables = {"params": params, **({"batch_stats": stats} if stats
+                                       else {})}
+    refs = jm.apply(variables, spec, pre)
+    tm = port_model(GaGNet(GaGNetConfig(**GAG, **kw)), params, stats)
+    with torch.no_grad():
+        outs = tm(torch.from_numpy(spec), torch.from_numpy(pre))
+    for a, b in zip(outs, refs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
 
 
 def test_full_width_param_counts():

@@ -28,10 +28,12 @@ from eabnet_tpu_torch.weights import (flatten_tree, load_jax_params,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def small_cfg():
+def small_cfg(norm="IN"):
     return ExperimentConfig(model=ComposedConfig(
-        eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1),
-        gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2))))
+        eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1,
+                            norm_type=norm),
+        gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2),
+                            norm_type=norm)))
 
 
 @pytest.fixture(scope="module")
@@ -122,6 +124,44 @@ def test_params_files_both_ways(tmp_path, jax_state):
         assert got[k].tobytes() == v.tobytes(), k
     with pytest.raises(NotImplementedError):
         PC.load_checkpoint(str(tmp_path / "3.pth"), fresh, None)
+
+
+def test_batch_norm_ckpt_round_trips_bit_for_bit(tmp_path):
+    """A BN train state with moved running statistics: written by the JAX
+    package, read by the port, written by the port, read by the JAX
+    package; the batch_stats and params come back bit for bit, and a
+    batch_stats leaf no buffer takes is refused."""
+    cfg = small_cfg("BN")
+    _, state = create_train_state(cfg, jax.random.key(1))
+    rng = np.random.default_rng(2)
+    state = jax.tree.map(np.asarray, state).replace(
+        step=np.asarray(3, np.int32),
+        batch_stats=jax.tree.map(
+            lambda v: rng.random(v.shape).astype(v.dtype),
+            jax.tree.map(np.asarray, state.batch_stats)))
+    jpath = JC.save_checkpoint(state, 1, str(tmp_path / "jax"))
+    pcfg = PExperimentConfig.from_json(cfg.to_json())
+    model = build_model(pcfg.model)
+    assert len(list(model.named_buffers())) == len(
+        flatten_tree(state.batch_stats)) > 0
+    pstate, epoch = PC.load_checkpoint(
+        jpath, TrainState(0, model, adam_init(model)), None)
+    ppath = PC.save_checkpoint(pstate, epoch, str(tmp_path / "port"))
+    back, _ = JC.load_checkpoint(ppath, state, cfg)
+    for got, want in ((back.batch_stats, state.batch_stats),
+                      (back.params, state.params)):
+        want = flatten_tree(want)
+        got = flatten_tree(jax.tree.map(np.asarray, got))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), k
+    with pytest.raises(KeyError, match="batch_stats"):
+        with open(jpath, "rb") as f:
+            tree = msgpack_restore(f.read())
+        tree["state"]["batch_stats"]["eabnet"]["en"]["extra"] = np.ones(2)
+        other = tmp_path / "extra.ckpt"
+        other.write_bytes(msgpack_serialize(tree))
+        PC.load_checkpoint(str(other), pstate, None)
 
 
 @pytest.mark.parametrize("files,want", [

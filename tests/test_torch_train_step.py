@@ -8,6 +8,7 @@ Also the optimizer's pieces alone against optax, and ``freeze_eabnet``.
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -15,12 +16,16 @@ import torch
 
 from eabnet_tpu.config import (ComposedConfig, DataConfig, EaBNetConfig,
                                ExperimentConfig, GaGNetConfig, TrainConfig)
-from eabnet_tpu.train.step import create_train_state, make_train_step
+from eabnet_tpu.models import build_model as build_jax_model
+from eabnet_tpu.train.step import TrainState as JTrainState
+from eabnet_tpu.train.step import (create_train_state, make_optimizer,
+                                   make_train_step)
 from eabnet_tpu_torch.config import ExperimentConfig as PExperimentConfig
 from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.train import step as P
 from eabnet_tpu_torch.weights import (flatten_tree, from_jax_tree,
-                                      load_jax_params, to_jax_tree)
+                                      load_jax_batch_stats, load_jax_params,
+                                      to_jax_batch_stats, to_jax_tree)
 
 N_STEPS, BATCH, N = 3, 3, 3200
 # The bias of a conv right before an instance norm has no effect on the
@@ -41,11 +46,23 @@ MOMENT_RTOL = 0.05    # of each leaf's largest entry
 PARAM_ATOL = 2.5      # in units of lr
 
 
-def small_cfg(freeze=False):
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the port: on a host that other test workers
+    load, more threads mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def small_cfg(freeze=False, norm="IN", is_u2=True):
     return ExperimentConfig(
         model=ComposedConfig(
-            eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1),
-            gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2)),
+            eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1,
+                                norm_type=norm, is_u2=is_u2),
+            gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2),
+                                norm_type=norm, is_u2=is_u2),
             freeze_eabnet=freeze),
         data=DataConfig(dataset="fake"),
         train=TrainConfig(batch_size=BATCH, wav_len=0.2, lr=5e-4,
@@ -100,9 +117,11 @@ KEYS = ("eabnet", "postnet", "final")
 
 
 def set_state(pstate, jstate):
-    """The port's state := the JAX package's (params, step, Adam)."""
+    """The port's state := the JAX package's (params, batch statistics,
+    step, Adam)."""
     adam = jstate.opt_state[1][0]
     load_jax_params(pstate.model, jstate.params)
+    load_jax_batch_stats(pstate.model, jstate.batch_stats)
     pstate.step = int(jstate.step)
     pstate.opt_state = P.AdamState(
         int(adam.count),
@@ -166,6 +185,47 @@ def test_each_step_from_the_same_state(runs):
                     np.testing.assert_allclose(
                         got[k], v, rtol=0,
                         atol=MOMENT_RTOL * np.abs(v).max(), err_msg=msg)
+
+
+def batch_stft(cfg):
+    t = cfg.stft.num_frames(int(cfg.train.wav_len * cfg.stft.sr))
+    return jnp.zeros((1, t, cfg.stft.freq_bins, cfg.model.eabnet.M, 2))
+
+
+def test_batch_norm_step_matches_jax():
+    """A BN model (both nets, the plain UNet: a fifth of the U²Net's JAX
+    compile time): two train steps, each taken by the port from JAX's
+    state before it. The losses (batch statistics in the forward)
+    and the running statistics after the step (0.9 ra + 0.1 batch) match
+    flax's mutable batch_stats."""
+    cfg = small_cfg(norm="BN", is_u2=False)
+    # create_train_state's init under jit (its eager flax init is ~30 s)
+    model = build_jax_model(cfg.model)
+    variables = jax.jit(model.init)(jax.random.key(0), batch_stft(cfg))
+    state = JTrainState(step=jnp.zeros((), jnp.int32),
+                        params=variables["params"],
+                        opt_state=make_optimizer(cfg).init(
+                            variables["params"]),
+                        batch_stats=variables["batch_stats"])
+    jstep = make_train_step(cfg, donate=False)
+    pcfg = PExperimentConfig.from_json(cfg.to_json())
+    ours = P.TrainState(0, build_model(pcfg.model), None)
+    pstep = P.make_train_step(pcfg)
+    for noisy, clean, n in batches(seed=3)[:2]:
+        set_state(ours, state)
+        args = (torch.from_numpy(noisy), torch.from_numpy(clean),
+                torch.from_numpy(n))
+        state, jl = jstep(state, noisy, clean, n)
+        ours, pl = pstep(ours, *args)
+        np.testing.assert_allclose([float(pl[k]) for k in KEYS],
+                                   [float(jl[k]) for k in KEYS],
+                                   rtol=LOSS_RTOL)
+        want = flatten_tree(jax.tree.map(np.asarray, state.batch_stats))
+        got = flatten_tree(to_jax_batch_stats(ours.model))
+        assert got.keys() == want.keys() and len(got) > 0
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("max_norm", [1e3, 1e-2], ids=["keep", "clip"])

@@ -183,6 +183,9 @@ def test_train_step_dequantizes_int16():
     {"model": {"gagnet": {"norm_type": "BN"}}},
 ], ids=["bf16", "mesh", "device_mix", "bn"])
 def test_training_guard_refuses(tmp_path, change):
+    """The guard refuses bf16 compute, meshes and on-device synthesis; a
+    batch-norm model passes it and trains: one step on the CPU moves the
+    running statistics, which the checkpoint carries as batch_stats."""
     d = json.loads(tiny_cfg(tmp_path).to_json())
     for section, kv in change.items():
         for k, v in kv.items():
@@ -190,8 +193,24 @@ def test_training_guard_refuses(tmp_path, change):
                 d[section][k].update(v)
             else:
                 d[section][k] = v
-    with pytest.raises(NotImplementedError):
-        require_training(ExperimentConfig.from_dict(d))
+    cfg = ExperimentConfig.from_dict(d)
+    if cfg.model.gagnet.norm_type != "BN":
+        with pytest.raises(NotImplementedError):
+            require_training(cfg)
+        return
+    require_training(cfg)
+    from eabnet_tpu_torch.checkpoint import msgpack_restore
+
+    hist = train(cfg, max_steps=1, device="cpu", tensorboard=False)
+    assert [h["step"] for h in hist] == [1]
+    assert all(np.isfinite(hist[0][k]) for k in ("eabnet", "postnet",
+                                                 "final"))
+    with open(os.path.join(cfg.train.checkpoint_dir, "1.ckpt"), "rb") as f:
+        stats = msgpack_restore(f.read())["state"]["batch_stats"]
+    norm = stats["postnet"]["en"]["unet_0"]["in_norm"]["norm"]
+    assert set(stats) == {"postnet"}
+    assert np.abs(norm["mean"]).max() > 0 and not np.allclose(norm["var"],
+                                                              1.0)
 
 
 @pytest.mark.parametrize("data", [
