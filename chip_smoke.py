@@ -46,6 +46,30 @@ Phases, each announced with its elapsed seconds:
    (correlation > 0.99, RMS ratio in (0.8, 1.25)); ms per frame (mean,
    p50, p99) and kernel launches per frame at 1, 7 and 64 streams beside
    the 10 ms hop.
+5c. lowp: bfloat16 and int8w serving. The bf16 variants of the two
+   forward kernels against their plain bf16 versions at the release
+   weights: the LSTM-BF forward at T = 701, L = 161 and 1,127, the TCM
+   chain twin and single at B = 1 and 7. Let R be the SNR between the
+   plain bf16 and the plain float32 versions (TF32 off), D between the
+   plain bf16 version computed in float32 and in float64 around the same
+   bf16 operands (float32 rounding alone moves a bf16 result that far: a
+   rounding to bf16 that flips moves later operands by a bf16 step); a
+   kernel must reach min(R + 20, D - 3) dB, and a second launch must give
+   the same bits. Each kernel's time, its plain version's, nn.LSTM in
+   bf16 as the LSTM's yardstick, and the bound with bf16 bytes (FLOPs at
+   the f32 rate, and on the tensor cores at bf16's 989 TFLOP/s). Then
+   both released models in bfloat16 and int8w through load_enhancer on
+   item 00000, both stages (and through cli.enhance --compute-dtype,
+   stage esti), with the launches per forward read around it
+   ({1, 21, 0, 0} for composed_9mic, {1, 0, 0, 0} for the cLN model),
+   against the JAX package's goldens: R - 6 dB against its bf16 (int8w:
+   its int8w) output and, in bf16, R - 3 dB against its float32, R
+   between its float32 and bf16 goldens; int8w also within the JAX int8w
+   test's criteria of the port's own float32 output (relative error <
+   0.15, correlation > 0.99). The 7 val items as one batch for each model
+   and mode: the mean SI-SDR gain within 0.5 dB of that model's float32
+   gain in this run, wall, RTF, one profiled run's idle share, the peak
+   device memory and the resident parameter bytes beside float32's.
 6. backward (the train phase, part 1): each backward kernel, and the
    LSTM-BF training forward that saves its states, against its plain
    version on the card at the training shapes (T = 601; LSTM L = 1,127
@@ -112,6 +136,7 @@ BUDGET_S = 1100           # a hang dumps every thread's stack and exits
 F32_PEAK = 67e12          # H100 SXM f32 (non-tensor) FLOP/s
 MEM_RATE = 3.35e12        # H100 SXM HBM3 bytes/s
 TF32_PEAK = 495e12        # H100 SXM dense TF32 tensor-core FLOP/s
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 KERNEL_ATOL = 2e-5        # the JAX kernel tests' forward tolerance
 # the JAX kernel tests' gradient tolerances (tests/test_kernels.py,
 # tests/test_tcm_chain.py)
@@ -126,6 +151,20 @@ VAL = "release/val_set"
 GOLDEN = "tests/golden/torch_port_composed_9mic_00000.npz"
 EXP_CLN = "release/eabnet_9mic_cln"
 GOLDEN_CLN = "tests/golden/torch_port_eabnet_9mic_cln_00000.npz"
+# bf16 and int8w: the JAX package's outputs of item 00000 (keys
+# <stage>_<dtype>) beside each model's float32 golden
+LOWP_MODES = ("bfloat16", "int8w")
+LOWP_MODELS = ((EXP, GOLDEN, (1, 21, 0, 0)), (EXP_CLN, GOLDEN_CLN,
+                                              (1, 0, 0, 0)))
+# a kernel against its plain version: R + this (the TCM chain: each TCM
+# alone; the whole chain at this or D - LOWP_SPREAD_DB, whichever is
+# lower); a model against the JAX goldens: R - these
+LOWP_KERNEL_DB, LOWP_SPREAD_DB = 20.0, 3.0
+LOWP_MODEL_DB, LOWP_F32_DB = 6.0, 3.0
+LOWP_GAIN_DB = 0.5  # mean SI-SDR gain within this of float32's
+LOWP_DIR = "build/chip_smoke_lowp"  # the CLI's wavs
+# tests/test_quantize.py's int8w criteria against float32
+INT8W_MAX_ERR, INT8W_MIN_CORR = 0.15, 0.99
 STREAM_DIR = "build/chip_smoke_stream"
 # the JAX package's soak tolerance for streaming against offline
 # (tests/test_streaming_soak.py)
@@ -459,6 +498,8 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
                              ("sum", "lstm_bf_wgrad_sum_kernel"))}
         fwd_ms = cuda_ms(lambda: K._launch_fwd(xw1, *w, states=True), reps=5)
         library_fwd = cuda_ms(lambda: lstm(xg), reps=5)
+        plain_fwd = cuda_ms(lambda: K.double_lstm_states_reference(xw1, *w),
+                            reps=1, warmup=1)
         plain = cuda_ms(lambda: K.double_lstm_bwd_reference(
             xw1, dy, *states, *w), reps=1, warmup=1)
         library = cuda_ms(lib_bwd, reps=5)
@@ -478,8 +519,8 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
                                4.0 * (rows * (256 + 4 * 64) + 3 * 64 * 256
                                       + 256))
     say(f"lstm_bf T={t} L={lanes}: training forward {fwd_ms:.4f} ms, bound "
-        f"{fwd_bms:.4f} ms ({fwd_by}), cuDNN LSTM forward with grad "
-        f"{library_fwd:.4f} ms")
+        f"{fwd_bms:.4f} ms ({fwd_by}), plain {plain_fwd:.4f} ms, cuDNN LSTM "
+        f"forward with grad {library_fwd:.4f} ms")
     fwd_geo = fwd_geometry(lanes, t, fwd_ms, library_fwd)
     say(f"lstm_bf bwd T={t} L={lanes}: split by launch (torch.profiler): "
         + ("not measured (no device time recorded)" if split is None else
@@ -494,7 +535,8 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
         f"tensor cores (3 x TF32) {tc_bms:.4f} ms")
     return dict(err=err, ok=ok, ms=ms, fwd_ms=fwd_ms, fwd_err=fwd_err,
                 plain_ms=plain, library_ms=library, library_fb_ms=library_fb,
-                library_fwd_ms=library_fwd, fwd_geometry=fwd_geo,
+                library_fwd_ms=library_fwd, plain_fwd_ms=plain_fwd,
+                fwd_bound_ms=fwd_bms, fwd_geometry=fwd_geo,
                 split_ms=split, bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms)
 
 
@@ -898,15 +940,17 @@ def device_ms(fn, reps: int):
     return {key: ms / n for ms, n, key in rows} or None
 
 
-def profile_run(fn) -> None:
+def profile_run(fn):
     """fn() once under torch.profiler: device time by kernel and by
     category, and the device's idle share of the window (1 - the sum of
-    kernel time over the wall; one stream, so kernels do not overlap)."""
+    kernel time over the wall; one stream, so kernels do not overlap);
+    returns {wall_ms, kernel_ms, launches, idle}, or None where the
+    profiler recorded no device time."""
     rows, wall_ms = profiled(fn)
     if not rows:
         say("profile: no device time recorded by torch.profiler "
             "(device breakdown not measured)")
-        return
+        return None
     busy = sum(r[0] for r in rows)
     say(f"profile: wall {wall_ms:.2f} ms (profiler on), kernel time "
         f"{busy:.2f} ms in {sum(r[1] for r in rows)} launches, device idle "
@@ -921,6 +965,9 @@ def profile_run(fn) -> None:
             f"({n} launches)")
     for ms, n, key in sorted(rows, reverse=True)[:12]:
         say(f"  {ms:9.3f} ms x{n:<5d} {key[:100]}")
+    return dict(wall_ms=wall_ms, kernel_ms=busy,
+                launches=sum(r[1] for r in rows),
+                idle=max(0.0, 1 - busy / wall_ms))
 
 
 def latency(step, frames, reps: int) -> dict:
@@ -1071,11 +1118,13 @@ def stream_phase(enh, smi: str) -> dict:
                 state_bytes=sizes[-1], launches=launches)
 
 
-def serve_item(enh, golden_path: str, want: dict, label: str = "") -> dict:
+def serve_item(enh, golden_path: str, want: dict, label: str = "",
+               check=None):
     """Item 00000 alone through ``enh`` at both stages: every kernel's
     launches in one forward (must equal ``want``, keyed as LAUNCH_KEYS),
-    finite output, and SNR against the JAX golden; returns the launches of
-    the ``esti`` forward."""
+    finite output, and SNR against the JAX golden (or ``check(stage,
+    out)``); returns the launches of the ``esti`` forward and the outputs
+    by stage."""
     import numpy as np
     import torch
 
@@ -1083,6 +1132,7 @@ def serve_item(enh, golden_path: str, want: dict, label: str = "") -> dict:
 
     _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
     golden = np.load(golden_path)
+    outs = {}
     for stage in ("esti", "esti0"):
         enh.output = stage
         enh(noisy0)  # warm-up (cuDNN algorithm choice, allocator)
@@ -1100,13 +1150,17 @@ def serve_item(enh, golden_path: str, want: dict, label: str = "") -> dict:
         require(out.shape == golden[stage].shape
                 and bool(np.isfinite(out).all()),
                 f"{label}{stage}: finite, shape {out.shape}")
-        snr = snr_db(golden[stage], out)
-        say(f"{label}{stage}: SNR vs the JAX golden {snr:.2f} dB")
-        require(snr >= GOLDEN_MIN_SNR_DB,
-                f"{label}{stage}: SNR vs golden >= {GOLDEN_MIN_SNR_DB} dB")
+        outs[stage] = out
+        if check is not None:
+            check(stage, out)
+        else:
+            snr = snr_db(golden[stage], out)
+            say(f"{label}{stage}: SNR vs the JAX golden {snr:.2f} dB")
+            require(snr >= GOLDEN_MIN_SNR_DB, f"{label}{stage}: SNR vs "
+                    f"golden >= {GOLDEN_MIN_SNR_DB} dB")
         if stage == "esti":
             esti_launches = launches
-    return esti_launches
+    return esti_launches, outs
 
 
 def serve_batch(enh, smi: str, label: str = "") -> dict:
@@ -1127,6 +1181,7 @@ def serve_batch(enh, smi: str, label: str = "") -> dict:
     clean = [read_wav(os.path.join(VAL, "clean", n))[1] for n in names]
     enh.enhance_batch(noisy)  # warm-up at the batch shape
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
         t1 = time.perf_counter()
@@ -1146,12 +1201,251 @@ def serve_batch(enh, smi: str, label: str = "") -> dict:
             "dB > 0")
     audio_s = sum(x.shape[-1] for x in noisy) / cfg.stft.sr
     wall = min(walls)
+    peak = torch.cuda.max_memory_allocated()
     say(f"{label}batch of {len(noisy)} items ({audio_s:.1f} s of audio): "
         f"wall {wall * 1e3:.2f} ms (min of "
         f"{['%.2f' % (w * 1e3) for w in walls]} ms), real-time factor "
-        f"{wall / audio_s:.5f}, on {smi}")
+        f"{wall / audio_s:.5f}, peak device memory {peak} bytes, resident "
+        f"parameters {enh.param_bytes()} bytes, on {smi}")
     return dict(gain=mean_gain, wall=wall, rtf=wall / audio_s, noisy=noisy,
-                names=names)
+                names=names, peak_bytes=peak, param_bytes=enh.param_bytes())
+
+
+# ------------------------------------------------------------------ lowp
+def lowp_rule(what: str, out, ref16, ref32, wide=None) -> dict:
+    """A bf16 kernel against its plain bf16 version (ref16): its SNR, R
+    (plain bf16 against plain float32, ref32) and the bound R + 20; with
+    ``wide`` (a whole TCM chain) D (plain bf16 in float32 against the same
+    in float64) and the bound min(R + 20, D - 3). Also the largest entry
+    gap (reported, not bounded), printed."""
+    f = [a.float().cpu().numpy() for a in (out, ref16, ref32)]
+    snr, r = snr_db(f[1], f[0]), snr_db(f[2], f[1])
+    need, d = r + LOWP_KERNEL_DB, None
+    if wide is not None:
+        d = snr_db(wide.float().cpu().numpy(), f[1])
+        need = min(need, d - LOWP_SPREAD_DB)
+    gap = float(abs(f[0] - f[1]).max())
+    say(f"{what}: kernel vs plain bf16 {snr:.2f} dB (R {r:.2f}, R + "
+        f"{snr - r:.2f}" + ("" if d is None else f"; D {d:.2f}") +
+        f"; needs {need:.2f}), largest entry gap {gap:.3e}")
+    return dict(snr=snr, r=r, d=d, need=need, err=gap, ok=snr >= need)
+
+
+def tcm_each_rule(what: str, x16, w32, w16, dils, twin: bool) -> dict:
+    """Each TCM of the bf16 chain kernel alone: its float32 output on the
+    kernel's own float32 trunk input, against the plain bf16 version's on
+    the same input, must reach R + 20 dB, R from the plain float32 version
+    there. Printed: each TCM's margin over R and the largest entry gap."""
+    import torch
+
+    from eabnet_tpu_torch.kernels.tcm_chain import (bf16_trunks,
+                                                    tcm_chain_reference)
+
+    trunks = bf16_trunks(x16, w16, dils, twin)
+    trunk, snrs, rs, gap = x16.float(), [], [], 0.0
+    for j, dil in enumerate(dils):
+        ref32, ref16 = (tcm_chain_reference(
+            trunk, tuple(w[j:j + 1] for w in ws), (dil,), twin)
+            for ws in (w32, w16))
+        f = [a.cpu().numpy() for a in (trunks[j], ref16, ref32)]
+        snrs.append(snr_db(f[1], f[0]))
+        rs.append(snr_db(f[2], f[1]))
+        gap = max(gap, float(abs(f[0] - f[1]).max()))
+        trunk = trunks[j]
+    margins = [g - r for g, r in zip(snrs, rs)]
+    say(f"{what}, each TCM alone (float32 trunk in and out): R + "
+        f"{', '.join(f'{m:.2f}' for m in margins)} dB (needs R + "
+        f"{LOWP_KERNEL_DB:g}), largest entry gap {gap:.3e}")
+    return dict(each_snr=snrs, each_r=rs, each_err=gap,
+                each_ok=min(margins) >= LOWP_KERNEL_DB)
+
+
+def lowp_bound(flops: float, nbytes: float):
+    """The bound of a kernel on bf16 inputs: bf16 bytes over the memory
+    rate against FLOPs at bf16's dense tensor-core rate (the card's peak
+    for bf16 operands); beside it the same bytes against FLOPs at the
+    float32 rate, the rate of arithmetic done as float32."""
+    t_ops, t_mem = flops / BF16_PEAK, nbytes / MEM_RATE
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes",
+            bound_ms(flops, nbytes)[0])
+
+
+def lstm_lowp_case(bf_map, lanes: int, t: int, seed: int) -> dict:
+    """The bf16 LSTM-BF forward against its plain bf16 version at (T, L),
+    with the release weights; times beside nn.LSTM in bf16."""
+    import torch
+
+    from eabnet_tpu_torch.kernels.lstm_bf import (double_lstm,
+                                                  double_lstm_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((t, lanes, 64), generator=g, device="cuda")
+    r1, r2 = bf_map.rnn1, bf_map.rnn2
+    xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).contiguous()
+    a32 = (xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
+    a16 = tuple(a.bfloat16().contiguous() for a in a32)
+    before = double_lstm.launches
+    out = double_lstm(*a16)
+    same = torch.equal(out, double_lstm(*a16))
+    rule = lowp_rule(f"lstm_bf bf16 T={t} L={lanes}", out,
+                     double_lstm_reference(*a16),
+                     double_lstm_reference(*a32))
+    lstm = torch.nn.LSTM(64, 64, num_layers=2).cuda()
+    with torch.no_grad():
+        for i, r in enumerate((r1, r2)):
+            getattr(lstm, f"weight_ih_l{i}").copy_(r.w_ih.t())
+            getattr(lstm, f"weight_hh_l{i}").copy_(r.w_hh.t())
+            getattr(lstm, f"bias_ih_l{i}").copy_(r.b_ih)
+            getattr(lstm, f"bias_hh_l{i}").copy_(r.b_hh)
+    # one weight buffer, where cuDNN takes the dtype (it does not for bf16
+    # here: PyTorch then warns and packs the weights on every call)
+    lstm.to(torch.bfloat16).flatten_parameters()
+    x16 = x.bfloat16()
+    ms = cuda_ms(lambda: double_lstm(*a16), reps=20)
+    plain = cuda_ms(lambda: double_lstm_reference(*a16), reps=2, warmup=1)
+    try:  # the yardstick only: cuDNN's LSTM in bf16, where it runs
+        library = cuda_ms(lambda: lstm(x16), reps=10)
+    except RuntimeError as e:
+        say(f"nn.LSTM in bf16 did not run ({e}); library time not measured")
+        library = None
+    double_lstm.launches = before  # comparison launches do not count
+    flops = 2.0 * (64 * 256 + 128 * 256) * lanes * t
+    nbytes = 2.0 * (t * lanes * 256 + t * lanes * 64 + 192 * 256 + 256)
+    bms, by, f32b = lowp_bound(flops, nbytes)
+    say(f"lstm_bf bf16 T={t} L={lanes}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, nn.LSTM bf16 {library} ms, bound {bms:.4f} ms "
+        f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), at the "
+        f"float32 rate {f32b:.4f} ms; a second launch gives "
+        f"{'the same bits' if same else 'OTHER BITS'}")
+    return dict(rule, same=same, ms=ms, plain_ms=plain, library_ms=library,
+                bound_ms=bms, bound_by=by, f32_bound_ms=f32b)
+
+
+def tcm_lowp_case(group, b: int, t: int, seed: int) -> dict:
+    """The bf16 TCM-chain forward against its plain bf16 version for one
+    release group at (B, T)."""
+    import torch
+
+    from eabnet_tpu_torch.kernels.tcm_chain import (tcm_chain,
+                                                    tcm_chain_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, t, 256), generator=g, device="cuda")
+    w32 = group.stacked_weights()
+    w16 = tuple(w.bfloat16().contiguous() for w in w32)
+    x16 = x.bfloat16()
+    dils, twin, k = group.dilations, group.twin_gate, w32[1].shape[1]
+    name = f"{'twin' if twin else 'single'} K={k}"
+    before = tcm_chain.launches
+    out = tcm_chain(x16, w16, dils, twin)
+    same = torch.equal(out, tcm_chain(x16, w16, dils, twin))
+    rule = lowp_rule(f"tcm_chain bf16 {name} B={b} T={t}", out,
+                     tcm_chain_reference(x16, w16, dils, twin),
+                     tcm_chain_reference(x, w32, dils, twin),
+                     tcm_chain_reference(x16, w16, dils, twin,
+                                         compute=torch.float64))
+    each = tcm_each_rule(f"tcm_chain bf16 {name} B={b} T={t}", x16, w32, w16,
+                         dils, twin)
+    rule.update(each, ok=rule["ok"] and each["each_ok"],
+                err=max(rule["err"], each["each_err"]))
+    from eabnet_tpu_torch.kernels.tcm_chain import geometry
+
+    geo = geometry(b, t, k, twin, backward=False, lowp=True)
+    ms = cuda_ms(lambda: tcm_chain(x16, w16, dils, twin), reps=50)
+    plain = cuda_ms(lambda: tcm_chain_reference(x16, w16, dils, twin),
+                    reps=10)
+    tcm_chain.launches = before
+    p, c, d = len(dils), 64, 256
+    nb = 2 if twin else 1
+    flops = 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
+    nbytes = 2.0 * (2 * b * t * d + p * (d * c + nb * k * c * c + c * d
+                                         + 9 * c))
+    bms, by, f32b = lowp_bound(flops, nbytes)
+    say(f"tcm_chain bf16 {name} B={b} T={t}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} "
+        f"GFLOP, {nbytes / 1e6:.2f} MB), at the float32 rate {f32b:.4f} ms; "
+        f"{geo['blocks']} blocks ({geo['blocks_per_sm']} per SM); a second "
+        f"launch gives {'the same bits' if same else 'OTHER BITS'}")
+    return dict(rule, same=same, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, f32_bound_ms=f32b, geometry=geo)
+
+
+def lowp_serving(exp: str, golden_path: str, want, mode: str, f32_item,
+                 f32_batch: dict, smi: str) -> dict:
+    """One released model in one low-precision mode through load_enhancer:
+    item 00000 at both stages against the JAX goldens (module doc, 5c),
+    int8w also against the port's own float32 item outputs (f32_item),
+    and the 7 val items as one batch beside float32's (f32_batch)."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.inference import load_enhancer
+
+    from eabnet_tpu_torch.cli import enhance as enhance_cli
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    label = f"{os.path.basename(exp)} {mode} "
+    g32 = np.load(golden_path)
+    glow = np.load(golden_path.replace(".npz", "_lowp.npz"))
+    checks = {}
+
+    def check(stage, out, key=None):
+        r = snr_db(g32[stage], glow[f"{stage}_bfloat16"])
+        to_ref = snr_db(glow[f"{stage}_{mode}"], out)
+        to_f32 = snr_db(g32[stage], out)
+        say(f"{label}{key or stage}: vs JAX {mode} {to_ref:.2f} dB (R "
+            f"{r:.2f}, needs {r - LOWP_MODEL_DB:.2f}), vs JAX float32 "
+            f"{to_f32:.2f} dB" + (f" (needs {r - LOWP_F32_DB:.2f})"
+                                  if mode == "bfloat16" else ""))
+        require(to_ref >= r - LOWP_MODEL_DB, f"{label}{key or stage}: >= R "
+                f"- {LOWP_MODEL_DB:g} dB vs JAX {mode}")
+        if mode == "bfloat16":
+            require(to_f32 >= r - LOWP_F32_DB, f"{label}{key or stage}: >= "
+                    f"R - {LOWP_F32_DB:g} dB vs JAX float32")
+        else:
+            ref = f32_item[stage]
+            err = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+            corr = float(np.corrcoef(out, ref)[0, 1])
+            say(f"{label}{key or stage}: vs the port's float32: relative "
+                f"error {err:.4f}, correlation {corr:.5f}")
+            require(err < INT8W_MAX_ERR and corr > INT8W_MIN_CORR,
+                    f"{label}{key or stage}: relative error < "
+                    f"{INT8W_MAX_ERR}, correlation > {INT8W_MIN_CORR} vs "
+                    "float32")
+        checks[key or stage] = dict(snr=to_ref, r=r, snr_f32=to_f32)
+
+    enh = load_enhancer(exp, compute_dtype=mode, device="cuda")
+    launches, _ = serve_item(enh, golden_path, dict(zip(LAUNCH_KEYS, want)),
+                             label, check)
+    # the same item through the CLI, as a user runs it
+    os.makedirs(LOWP_DIR, exist_ok=True)
+    wav = os.path.join(LOWP_DIR, f"{os.path.basename(exp)}_{mode}.wav")
+    enhance_cli.main([os.path.join(VAL, "noisy", "00000.wav"), wav,
+                      "--exp-root", exp, "--compute-dtype", mode])
+    check("esti", read_wav(wav)[1], key="cli esti")
+    batch = serve_batch(enh, smi, label)
+    prof = profile_run(lambda: enh.enhance_batch(batch["noisy"]))
+    dg = batch["gain"] - f32_batch["gain"]
+    say(f"{label}batch: mean SI-SDR gain {batch['gain']:+.3f} dB (float32 "
+        f"{f32_batch['gain']:+.3f}, {dg:+.3f}); wall {batch['wall'] * 1e3:.2f}"
+        f" ms (float32 {f32_batch['wall'] * 1e3:.2f}), RTF "
+        f"{batch['rtf']:.5f}; peak device memory {batch['peak_bytes']} "
+        f"bytes (float32 {f32_batch['peak_bytes']}), resident parameters "
+        f"{batch['param_bytes']} bytes (float32 "
+        f"{f32_batch['param_bytes']})" + (
+            f"; profiled idle share {prof['idle']:.3f} (float32 "
+            f"{f32_batch['profile']['idle']:.3f})"
+            if prof and f32_batch.get("profile") else ""))
+    require(abs(dg) <= LOWP_GAIN_DB, f"{label}mean SI-SDR gain within "
+            f"{LOWP_GAIN_DB} dB of float32's")
+    del enh
+    torch.cuda.empty_cache()
+    return dict(launches=launches, item=checks, gain=batch["gain"],
+                gain_f32=f32_batch["gain"], wall=batch["wall"],
+                rtf=batch["rtf"], peak_bytes=batch["peak_bytes"],
+                param_bytes=batch["param_bytes"],
+                idle=prof["idle"] if prof else None)
 
 
 def main() -> int:
@@ -1247,7 +1541,7 @@ def main() -> int:
                      torch.backends.cuda.matmul.allow_tf32)
     with Phase("slice"):
         enh = load_enhancer(EXP, device="cuda")
-        main_launches = serve_item(enh, GOLDEN, dict(zip(
+        main_launches, main_out = serve_item(enh, GOLDEN, dict(zip(
             LAUNCH_KEYS, (1, 21, 0, 0))))
         served = serve_batch(enh, smi)
         require((torch.backends.cudnn.allow_tf32,
@@ -1255,7 +1549,8 @@ def main() -> int:
                 "the Enhancer left torch's TF32 flags as it found them")
 
     with Phase("profile"):
-        profile_run(lambda: enh.enhance_batch(served["noisy"]))
+        served["profile"] = profile_run(
+            lambda: enh.enhance_batch(served["noisy"]))
     del enh
 
     with Phase("cln"):
@@ -1264,13 +1559,13 @@ def main() -> int:
         # the per-TCM route (the TCM-chain kernel is causal IN only)
         t_phase = time.perf_counter()
         enh = load_enhancer(EXP_CLN, device="cuda")
-        cln_launches = serve_item(enh, GOLDEN_CLN, dict(zip(
+        cln_launches, cln_out = serve_item(enh, GOLDEN_CLN, dict(zip(
             LAUNCH_KEYS, (1, 0, 0, 0))), "cln ")
         cln = serve_batch(enh, smi, "cln ")
         say(f"cln: mean SI-SDR gain {cln['gain']:+.3f} dB over the "
             f"{len(cln['noisy'])} val items, composed_9mic "
             f"{served['gain']:+.3f} dB in the slice phase of this run")
-        profile_run(lambda: enh.enhance_batch(cln["noisy"]))
+        cln["profile"] = profile_run(lambda: enh.enhance_batch(cln["noisy"]))
         require((torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) == default_flags,
                 "cln: the Enhancer left torch's TF32 flags as it found them")
@@ -1282,6 +1577,40 @@ def main() -> int:
         streamed = stream_phase(enh, smi)
         say(f"stream: phase {time.perf_counter() - t_phase:.1f} s")
     del enh
+
+    with Phase("lowp"):
+        # bfloat16 and int8w serving: the bf16 kernels against their plain
+        # versions, then both models through load_enhancer
+        t_phase = time.perf_counter()
+        cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
+        model = load_jax_params(build_model(cfg.model),
+                                load_params(latest_checkpoint(EXP))).cuda()
+        t = 701
+        low = {
+            "lstm_1": lstm_lowp_case(model.eabnet.bf_map, 161, t, seed=31),
+            "lstm_7": lstm_lowp_case(model.eabnet.bf_map, 7 * 161, t, 32),
+            "twin_1": tcm_lowp_case(model.eabnet.stcn_0, 1, t, seed=33),
+            "twin_7": tcm_lowp_case(model.eabnet.stcn_0, 7, t, seed=34),
+            "single_1": tcm_lowp_case(model.postnet.gag_0.glance.tcn_0, 1, t,
+                                      seed=35),
+            "single_7": tcm_lowp_case(model.postnet.gag_0.glance.tcn_0, 7, t,
+                                      seed=36),
+        }
+        del model
+        bad = [k for k, v in low.items() if not v["ok"]]
+        require(not bad, f"every bf16 kernel within R + {LOWP_KERNEL_DB:g} "
+                "dB of its plain version (the TCM chain: each TCM; the "
+                f"whole chain at min(R + {LOWP_KERNEL_DB:g}, D - "
+                f"{LOWP_SPREAD_DB:g})) (outside: {bad})")
+        require(all(v["same"] for v in low.values()),
+                "bf16 kernels: a second launch gives the same bits")
+        f32_runs = {EXP: (main_out, served), EXP_CLN: (cln_out, cln)}
+        lowp = {}
+        for exp, golden, want in LOWP_MODELS:
+            for mode in LOWP_MODES:
+                lowp[f"{os.path.basename(exp)} {mode}"] = lowp_serving(
+                    exp, golden, want, mode, *f32_runs[exp], smi)
+        say(f"lowp: phase {time.perf_counter() - t_phase:.1f} s")
 
     with Phase("backward"):
         # the train phase, part 1: the backward kernels against their
@@ -1331,15 +1660,16 @@ def main() -> int:
     # the LSTM-BF forward at every shape: serving (T=701) and the training
     # variant (T=601), kernel and nn.LSTM (with grad on for training)
     fwd_shapes = {}
-    for use, rows, ms_key, lib_key, geo_key in (
+    for use, rows, ms_key, lib_key, plain_key, geo_key in (
             ("serve", [res[k] for k in lstm_keys], "ms", "library_ms",
-             "geometry"),
+             "plain_ms", "geometry"),
             ("train", [bwd[k] for k in lstm_keys], "fwd_ms",
-             "library_fwd_ms", "fwd_geometry")):
+             "library_fwd_ms", "plain_fwd_ms", "fwd_geometry")):
         for r in rows:
             g = r[geo_key]
             fwd_shapes[f"{use} T={g['t']} L={g['lanes']}"] = dict(
-                ms=r[ms_key], library_ms=r[lib_key], **g)
+                ms=r[ms_key], library_ms=r[lib_key], plain_ms=r[plain_key],
+                **g)
     def tcm_shapes(cases, t):
         """Every TCM-chain case of a phase: its numbers and launch."""
         return {f"{k.split('_')[0]} T={t} B={k.split('_')[1]}": {
@@ -1399,6 +1729,43 @@ def main() -> int:
          if bwd["twin_7"]["split_ms"] and bwd["single_7"]["split_ms"]
          else None, "shapes": tcm_shapes(bwd, TRAIN_T)},
     ]}
+    # the bf16 serving variants: launches of one bf16 forward of each
+    # model (int8w runs the same bf16 kernels), times per forward of one
+    # item as above
+    low_lstm = ("lstm_1", "lstm_7")
+    low_tcm = ("twin_1", "twin_7", "single_1", "single_7")
+    low_fwd = {k: 3 * low["twin_1"][k] + 18 * low["single_1"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "f32_bound_ms")}
+    for name, key, keys, row in (
+            ("lstm_bf_fwd_bf16", "lstm_bf", low_lstm, dict(
+                replaces="eabnet_tpu/kernels/lstm_bf.py:57",
+                source="eabnet_tpu_torch/csrc/lstm_bf.cu",
+                ms=low["lstm_1"]["ms"], plain_ms=low["lstm_1"]["plain_ms"],
+                bound_ms=low["lstm_1"]["bound_ms"],
+                bound_by=low["lstm_1"]["bound_by"],
+                library_ms=low["lstm_1"]["library_ms"],
+                f32_bound_ms=low["lstm_1"]["f32_bound_ms"])),
+            ("tcm_chain_fwd_bf16", "tcm_chain", low_tcm, dict(
+                replaces="eabnet_tpu/kernels/tcm_chain.py:175",
+                source="eabnet_tpu_torch/csrc/tcm_chain.cu",
+                ms=low_fwd["ms"], plain_ms=low_fwd["plain_ms"],
+                bound_ms=low_fwd["bound_ms"],
+                bound_by=low["twin_1"]["bound_by"], library_ms=None,
+                f32_bound_ms=low_fwd["f32_bound_ms"]))):
+        record["kernels"].append(dict(
+            name=name, route="cuda",
+            launches=lowp["composed_9mic bfloat16"]["launches"][key],
+            max_abs_err=max(low[k]["err"] for k in keys), **row,
+            snr_db={k: low[k]["snr"] for k in keys},
+            need_db={k: low[k]["need"] for k in keys},
+            shapes={k: {f: low[k][f] for f in (
+                "ms", "plain_ms", "bound_ms", "f32_bound_ms", "library_ms",
+                "geometry") if f in low[k]} for k in keys},
+            launches_by_path={p: v["launches"][key]
+                              for p, v in lowp.items()}))
+    record["lowp"] = {p: {f: v[f] for f in (
+        "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
+        "idle", "item")} for p, v in lowp.items()}
     record["kernels"][0]["train_launches"] = trained["launches"]["lstm_bf"]
     record["kernels"][1]["train_launches"] = \
         trained["launches"]["tcm_chain"]

@@ -6,7 +6,9 @@ flax state dict serialized as msgpack, with each ndarray stored as msgpack
 extension type 1 holding a nested msgpack ``(shape, dtype name, buffer)``
 and each numpy scalar as type 3 in the same encoding. The reader below
 decodes exactly that subset of msgpack: maps, arrays, str, bin, ints,
-floats, nil/bool and those two extension types. The writer
+floats, nil/bool and those two extension types; a bfloat16 array (a
+checkpoint of a bf16 tree) comes back as the float32 array of the same
+values. The writer
 (``msgpack_serialize``) emits what ``flax.serialization.to_bytes`` emits
 for a tree of dicts and numpy arrays and scalars, byte for byte.
 """
@@ -103,8 +105,11 @@ def _decode_ext(code: int, data: bytes):
         raise ValueError(f"unsupported msgpack extension type {code}")
     shape, dtype, buf = _Reader(data, raw=True).read()
     if dtype == b"bfloat16":
-        raise NotImplementedError("bfloat16 checkpoints: the port runs "
-                                  "float32 only in this slice")
+        # numpy has no bfloat16: a bfloat16 value is the high half of the
+        # float32 with the same value, so the decode is exact
+        arr = (np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16
+               ).view(np.float32).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
     arr = np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
     return arr[()] if code == _EXT_NPSCALAR else arr
 

@@ -1,7 +1,8 @@
 """Enhancement CLI of the port:
 
     python -m eabnet_tpu_torch.cli.enhance in.wav out.wav \
-        --exp-root release/composed_9mic [--output-stage esti0] [--device cpu]
+        --exp-root release/composed_9mic [--output-stage esti0] \
+        [--compute-dtype bfloat16] [--device cpu]
 
 The input may be a directory of wavs; the output is then a directory.
 """
@@ -25,6 +26,12 @@ def main(argv=None):
                         choices=["esti", "esti0"],
                         help="esti = EaBNet + GaGNet, esti0 = the bare "
                         "EaBNet beamformer")
+    parser.add_argument("--compute-dtype", default="float32",
+                        choices=["float32", "bfloat16", "int8w"],
+                        help="model compute dtype: bfloat16 casts the "
+                        "weights and activations; int8w stores weights as "
+                        "int8 and dequantizes them to bf16 per call "
+                        "(STFT/iSTFT stay float32)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
     parser.add_argument("--batch-size", type=int, default=1,
@@ -39,7 +46,9 @@ def main(argv=None):
     if args.mic_permutation:
         perm = [int(x) for x in args.mic_permutation.split(",")]
     enhancer = load_enhancer(args.exp_root, args.ckpt,
-                             output=args.output_stage, device=args.device)
+                             output=args.output_stage,
+                             compute_dtype=args.compute_dtype,
+                             device=args.device)
     if os.path.isdir(args.input):
         os.makedirs(args.output, exist_ok=True)
         names = sorted(n for n in os.listdir(args.input)

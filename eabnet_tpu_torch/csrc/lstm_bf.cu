@@ -50,7 +50,20 @@
 // step (the backward's walk), and the FFMA rate, at under half its floor,
 // is not what holds the step. No atomics: a second launch gives the same
 // bits.
+//
+// bfloat16 serving (eabnet_lstm_bf_fwd_bf16) is the same kernel with the
+// Pallas kernel's bf16 operands: xw1, the weights and b2 arrive in bf16,
+// h2 leaves in bf16. The weights go to registers as float32 (a bf16 value
+// is a float32 value, so the products are those of the bf16 operands, and
+// their sums stay float32); h is rounded to bf16 where it is written to
+// the h buffer, the only place it is read from as a product operand (in the
+// Pallas kernel h enters the products and the output only through a cast
+// to bf16); c and the gates stay float32. xw1 arrives by 16-byte cp.async,
+// a lane's 256 gates in their own order, and the cell reads its four. Its
+// work and time per step are the float32 kernel's: only the stream halves.
+// The training variant stays float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,19 +119,35 @@ size_t fwd_smem_bytes(int lb) {
   return sizeof(float) * (FWD_LANE_FLOATS * ((lb + 1) & ~1) + G);
 }
 
-template <bool RES>
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// h as the next products will read it: itself, or rounded to bf16
+__device__ __forceinline__ float operand(float h, const float*) { return h; }
+__device__ __forceinline__ float operand(float h, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(h));
+}
+
+// TIn is float (the float32 kernel) or bf16 (serving with bf16 operands)
+template <bool RES, typename TIn>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
-lstm_bf_fwd_kernel(const float* __restrict__ xw1,
-                   const float* __restrict__ w_hh1,
-                   const float* __restrict__ w2,
-                   const float* __restrict__ b2,
+lstm_bf_fwd_kernel(const TIn* __restrict__ xw1,
+                   const TIn* __restrict__ w_hh1,
+                   const TIn* __restrict__ w2,
+                   const TIn* __restrict__ b2,
                    float* __restrict__ h1_out, float* __restrict__ c1_out,
-                   float* __restrict__ h2_out, float* __restrict__ c2_out,
+                   TIn* __restrict__ h2_out, float* __restrict__ c2_out,
                    int T, int L, int LB) {
+  constexpr bool LOWP = sizeof(TIn) == 2;
   const int LP = (LB + 1) & ~1;  // lanes in pairs; a lane past LB is idle
   extern __shared__ float4 smem4[];
   float* s_h = reinterpret_cast<float*>(smem4);  // [2 buf][2 layer][LP][HS]
-  float* s_x = s_h + 4 * LP * HS;                // [2 buf][LP][unit][gate]
+  float* s_x = s_h + 4 * LP * HS;  // [2 buf][LP][unit][gate]; bf16: [gate]
   float* s_c = s_x + 2 * LP * G;                 // [2 layer][LP][HS]
   float* s_b = s_c + 2 * LP * HS;                // [unit][gate]
 
@@ -127,20 +156,33 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
   const int lane0 = blockIdx.x * LB;
 
   // xw1[s] for the block's lanes -> s_x[s & 1], gates of a unit together
+  // (float32: one float per thread and lane); bf16: each lane's 256 gates
+  // in their own order, 16 bytes per copy
   auto load_x = [&](int s) {
-    float* dst = s_x + (s & 1) * LP * G + 4 * (t & (H - 1)) + (t >> 6);
-    for (int l = 0; l < LB; ++l) {
-      const bool ok = lane0 + l < L;
-      cp_async4(dst + l * G,
-                xw1 + (ok ? (static_cast<size_t>(s) * L + lane0 + l) * G + t
-                          : 0), ok);
+    if constexpr (LOWP) {
+      bf16* dst = reinterpret_cast<bf16*>(s_x + (s & 1) * LP * G);
+      for (int e = t; e < LB * (G / 8); e += FWD_THREADS) {
+        const int l = e / (G / 8), c8 = (e % (G / 8)) * 8;
+        const bool ok = lane0 + l < L;
+        cp_async16(dst + l * G + c8,
+                   xw1 + (ok ? (static_cast<size_t>(s) * L + lane0 + l) * G
+                               + c8 : 0), ok);
+      }
+    } else {
+      float* dst = s_x + (s & 1) * LP * G + 4 * (t & (H - 1)) + (t >> 6);
+      for (int l = 0; l < LB; ++l) {
+        const bool ok = lane0 + l < L;
+        cp_async4(dst + l * G,
+                  xw1 + (ok ? (static_cast<size_t>(s) * L + lane0 + l) * G + t
+                            : 0), ok);
+      }
     }
     cp_async_commit();
   };
   load_x(0);
   for (int i = t; i < 4 * LP * HS; i += FWD_THREADS) s_h[i] = 0.0f;
   for (int i = t; i < 2 * LP * HS; i += FWD_THREADS) s_c[i] = 0.0f;
-  s_b[4 * (t & (H - 1)) + (t >> 6)] = b2[t];
+  s_b[4 * (t & (H - 1)) + (t >> 6)] = to_f32(b2[t]);
   // this thread's weights, in registers for the whole sequence: rows k =
   // 4 (kq + 4 i) + e of W_hh1, W_ih2 and W_hh2, the four gate columns of
   // unit u
@@ -152,9 +194,9 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int k = 4 * (kq + 4 * i) + e, col = q * H + u;
-        wa[i][e][q] = w_hh1[k * G + col];
-        wb[i][e][q] = w2[k * G + col];
-        wc[i][e][q] = w2[(H + k) * G + col];
+        wa[i][e][q] = to_f32(w_hh1[k * G + col]);
+        wb[i][e][q] = to_f32(w2[k * G + col]);
+        wc[i][e][q] = to_f32(w2[(H + k) * G + col]);
       }
   cp_async_wait<0>();
   __syncthreads();
@@ -218,19 +260,27 @@ lstm_bf_fwd_kernel(const float* __restrict__ xw1,
     auto cell = [&](int m, const float* gt) {
       const int l = m + own_lane, lane = lane0 + l;
       const int row = own_layer * LP + l;
-      const float4 add = *reinterpret_cast<const float4*>(
-          own_layer ? s_b + 4 * u : xb + l * G + 4 * u);
+      float4 add;
+      if constexpr (LOWP) {
+        const bf16* x16 = reinterpret_cast<const bf16*>(xb) + l * G + u;
+        add = own_layer ? *reinterpret_cast<const float4*>(s_b + 4 * u)
+                        : make_float4(to_f32(x16[0]), to_f32(x16[H]),
+                                      to_f32(x16[2 * H]), to_f32(x16[3 * H]));
+      } else {
+        add = *reinterpret_cast<const float4*>(
+            own_layer ? s_b + 4 * u : xb + l * G + 4 * u);
+      }
       float* cp = s_c + row * HS + u;
       const float c = sigm_t(gt[1] + add.y) * *cp +
                       sigm_t(gt[0] + add.x) * tanhf(gt[2] + add.z);
       const float h = sigm_t(gt[3] + add.w) * tanhf(c);
       if (l < LB && (own_layer ? s > 0 : s < T)) {
         *cp = c;
-        hn[row * HS + u] = h;
+        hn[row * HS + u] = operand(h, xw1);
         if (lane < L) {
           if (own_layer) {
             const size_t o = (static_cast<size_t>(s - 1) * L + lane) * H + u;
-            h2_out[o] = h;
+            store(h2_out + o, h);
             if (RES) c2_out[o] = c;
           } else if (RES) {
             const size_t o = (static_cast<size_t>(s) * L + lane) * H + u;
@@ -832,20 +882,21 @@ cudaError_t lanes_per_block(int L, int lb_max, int* lb) {
   return cudaSuccess;
 }
 
-template <bool RES>
-cudaError_t launch_fwd(const float* xw1, const float* w_hh1, const float* w2,
-                       const float* b2, float* h1, float* c1, float* h2,
+template <bool RES, typename TIn>
+cudaError_t launch_fwd(const TIn* xw1, const TIn* w_hh1, const TIn* w2,
+                       const TIn* b2, float* h1, float* c1, TIn* h2,
                        float* c2, int T, int L, cudaStream_t stream) {
   if (T < 1 || L < 1) return cudaErrorInvalidValue;
   int lb = 0;
   cudaError_t err = lanes_per_block(L, FWD_LB_MAX, &lb);
   if (err != cudaSuccess) return err;
   const size_t smem = fwd_smem_bytes(lb);
-  err = cudaFuncSetAttribute(lstm_bf_fwd_kernel<RES>,
+  err = cudaFuncSetAttribute(lstm_bf_fwd_kernel<RES, TIn>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_bf_fwd_kernel<RES><<<(L + lb - 1) / lb, FWD_THREADS, smem, stream>>>(
+  lstm_bf_fwd_kernel<RES, TIn>
+      <<<(L + lb - 1) / lb, FWD_THREADS, smem, stream>>>(
       xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, lb);
   return cudaGetLastError();
 }
@@ -865,6 +916,16 @@ int wgrad_chunks() {
 extern "C" int eabnet_lstm_bf_fwd(const float* xw1, const float* w_hh1,
                                   const float* w2, const float* b2, float* h2,
                                   int T, int L, void* stream) {
+  float* no = nullptr;
+  return launch_fwd<false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The serving forward with bf16 operands: as eabnet_lstm_bf_fwd with xw1,
+// w_hh1, w2, b2 and h2 in bfloat16 (xw1 16-byte aligned).
+extern "C" int eabnet_lstm_bf_fwd_bf16(const bf16* xw1, const bf16* w_hh1,
+                                       const bf16* w2, const bf16* b2,
+                                       bf16* h2, int T, int L, void* stream) {
   float* no = nullptr;
   return launch_fwd<false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L,
                            static_cast<cudaStream_t>(stream));

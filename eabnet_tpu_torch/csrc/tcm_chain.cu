@@ -60,8 +60,22 @@
 // (576 KB per TCM of an EaBNet group in the backward), and 80 registers
 // leave room for only two k-steps of them in flight.
 // Statistics and sums are float32.
+//
+// bfloat16 serving (eabnet_tcm_chain_fwd_bf16) runs the same phases with
+// the Pallas kernel's bf16 operands: x, the weights and the (P, 3, C)
+// tables arrive in bf16, the tables read as float32 from their values.
+// Each product is one mma.sync m16n8k8 with bf16 operands and a float32
+// sum in place of the three TF32 products: the A fragment is the staged
+// float32 tile rounded to bf16 where the fragment is built, the B
+// fragment the bf16 weights as stored. Each k-step still goes into zeroed
+// registers and is added in float32. The trunk stays float32 between the
+// TCMs, in the workspace (a bf16 y would round it after every TCM, which
+// the Pallas kernel does not): phase A of TCM 0 reads x once and writes
+// its float32 copy, phase C of the last TCM writes y in bf16 once. The
+// statistics, PReLU and gate are float32, as in the float32 kernel.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -144,22 +158,28 @@ __device__ __forceinline__ void ck_flush() {}
 #define CK_SYNC(ph, cat) __syncthreads()
 #endif
 
-struct Args {
-  const float* x;   // (B, T, D)
-  const float* wi;  // (P, D, C)
-  const float* wl;  // (P, K, C, C)  (tap, in, out)
-  const float* wr;  // (P, K, C, C)  (ignored when single)
-  const float* wo;  // (P, C, D)
-  const float* al;  // (P, 3, C)  PReLU slopes [L, R, out]
-  const float* ga;  // (P, 3, C)  IN scale
-  const float* be;  // (P, 3, C)  IN bias
-  float* y;         // (B, T, D)  trunk, then the output
-  float* pbuf;      // (2, B, T, C)  branch PReLU outputs
-  float* pobuf;     // (B, T, C)     gate PReLU output
-  float* stats;     // (3, B ntile, C, 2)  per-tile (mean, M2) per slot
+using bf16 = __nv_bfloat16;
+
+// W: the type of x, the weights and the tables (float, or bf16 serving)
+template <typename W>
+struct ArgsT {
+  const W* x;   // (B, T, D)
+  const W* wi;  // (P, D, C)
+  const W* wl;  // (P, K, C, C)  (tap, in, out)
+  const W* wr;  // (P, K, C, C)  (ignored when single)
+  const W* wo;  // (P, C, D)
+  const W* al;  // (P, 3, C)  PReLU slopes [L, R, out]
+  const W* ga;  // (P, 3, C)  IN scale
+  const W* be;  // (P, 3, C)  IN bias
+  float* y;     // (B, T, D)  trunk (float32), then the output (float32)
+  W* out;       // (B, T, D)  the output of a bf16 chain (y is its trunk)
+  float* pbuf;  // (2, B, T, C)  branch PReLU outputs
+  float* pobuf; // (B, T, C)     gate PReLU output
+  float* stats; // (3, B ntile, C, 2)  per-tile (mean, M2) per slot
   int B, T, D, K, P, ntile;
   int dil[MAXP];
 };
+using Args = ArgsT<float>;
 
 __device__ __forceinline__ float sigm(float v) {
   return 1.0f / (1.0f + expf(-v));
@@ -169,7 +189,8 @@ __device__ __forceinline__ float prelu(float v, float a) {
   return fmaxf(v, 0.0f) + a * fminf(v, 0.0f);
 }
 
-__device__ __forceinline__ int tile_rows(const Args& a, int tile) {
+template <typename W>
+__device__ __forceinline__ int tile_rows(const ArgsT<W>& a, int tile) {
   return min(TT, a.T - tile * TT);
 }
 
@@ -181,8 +202,27 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// two and four bf16 values read as float32
+__device__ __forceinline__ float2 ldg2(const bf16* p) {
+  const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xFFFF0000u));
+}
+
 __device__ __forceinline__ void st2(float* p, float u, float v) {
   *reinterpret_cast<float2*>(p) = make_float2(u, v);
+}
+
+__device__ __forceinline__ void st2(bf16* p, float u, float v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, v);
 }
 
 // The lane's place in the mma fragments: warp w, group g (rows g, g + 8),
@@ -237,6 +277,70 @@ __device__ __forceinline__ void mma3_add(float* c, const uint32_t* ah,
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += t[i];
 }
+
+// Two floats rounded to bf16 and packed, the first in the low half (the
+// lower k of an mma operand pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a b as one mma.sync m16n8k8 with bf16 operands into zeroed
+// registers, then a float32 add (as mma3_add)
+__device__ __forceinline__ void mma_bf16_add(float* c, const uint32_t* a,
+                                             uint32_t b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(t[0]), "+f"(t[1]), "+f"(t[2]), "+f"(t[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// The forward phases' products, by operand type: an A fragment of a staged
+// float32 tile (a()), then c += A B for a B fragment of the weights W
+// (row-major [k][n], rows of N) at k, k + 1 and column n (mac()). float:
+// three TF32 products; bf16: the tile rounded to bf16, one bf16 product.
+// The bf16 m16n8k8 takes the same (k0 + 2 tq, k0 + 2 tq + 1) pairs of
+// rows g, g + 8 as frag_a's permuted TF32 k slots, in their natural order.
+template <typename W>
+struct Product;
+
+template <>
+struct Product<float> {
+  uint32_t ah[4], al[4];
+  __device__ __forceinline__ void a(const float* t, int S, int k0,
+                                    const Lane& l) {
+    frag_a(t, S, k0, l, ah, al);
+  }
+  __device__ __forceinline__ void mac(float* c, const float* W, int N, int k,
+                                      int n, bool ok) const {
+    uint32_t bh[2], bl[2];
+    frag_b(W, N, k, n, ok, bh, bl);
+    mma3_add(c, ah, al, bh, bl);
+  }
+};
+
+template <>
+struct Product<bf16> {
+  uint32_t a2[2];
+  __device__ __forceinline__ void a(const float* t, int S, int k0,
+                                    const Lane& l) {
+    const float* p = t + l.g * S + k0 + 2 * l.tq;
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    const float2 v = *reinterpret_cast<const float2*>(p + 8 * S);
+    a2[0] = pack_bf16(u.x, u.y);
+    a2[1] = pack_bf16(v.x, v.y);
+  }
+  __device__ __forceinline__ void mac(float* c, const bf16* W, int N, int k,
+                                      int n, bool ok) const {
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(W);
+    const uint32_t lo = ok ? __ldg(w + (size_t)k * N + n) : 0u;
+    const uint32_t hi = ok ? __ldg(w + (size_t)(k + 1) * N + n) : 0u;
+    mma_bf16_add(c, a2, lo | hi << 16);
+  }
+};
 
 // Sum over the 8 lanes of a quad position (the rows g of a C fragment)
 __device__ __forceinline__ float sum_rows(float v) {
@@ -293,7 +397,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // the dbeta parts, sum 2 of the dgamma parts. Thread (c, q) = (tid / 4,
 // tid % 4) takes the tiles i = q mod 4, every slot's loads in one loop, and
 // two shuffles add the four: a fixed order, so the bits repeat.
-__device__ __forceinline__ void merge(const Args& a, const float* st,
+template <typename W>
+__device__ __forceinline__ void merge(const ArgsT<W>& a, const float* st,
                                       const float* tp, size_t tb, int b,
                                       int slots, float* sm) {
   const int c = threadIdx.x >> 2, q = threadIdx.x & 3;
@@ -344,16 +449,28 @@ __device__ __forceinline__ void merge(const Args& a, const float* st,
   }
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* p) { return ldg4(p); }
+
 // The x tile (rows t0 .. t0 + 15 of sample b, D wide) into s_x[TT][SD]:
-// zeros past `rows` and in the columns D .. D8 that the last k-step reads.
-__device__ __forceinline__ void stage_x(float* s_x, const float* src, int D,
-                                        int D8, int rows) {
+// zeros past `rows` and in the columns D .. D8 that the last k-step reads;
+// with `copy`, its rows also written there as float32 (the bf16 chain's
+// trunk).
+template <typename S>
+__device__ __forceinline__ void stage_x(float* s_x, const S* src, int D,
+                                        int D8, int rows,
+                                        float* copy = nullptr) {
   const int n4 = D8 / 4;
   for (int e = threadIdx.x; e < TT * n4; e += NT) {
     const int r = e / n4, c4 = (e % n4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && c4 < D)
-      v = *reinterpret_cast<const float4*>(src + (size_t)r * D + c4);
+    if (r < rows && c4 < D) {
+      v = ld4(src + (size_t)r * D + c4);
+      if (copy) *reinterpret_cast<float4*>(copy + (size_t)r * D + c4) = v;
+    }
     *reinterpret_cast<float4*>(s_x + r * SD + c4) = v;
   }
 }
@@ -368,31 +485,32 @@ size_t smem_floats(bool twin, int K) {
 }
 
 // Phase A of TCM j: h = xin @ wi[j], PReLU per branch into a.pbuf, per-tile
-// stats into st; also h itself into save_h when given (the backward). Warp
-// w owns the columns 8 w .. 8 w + 7.
-template <bool TWIN>
-__device__ void phase_a(const Args& a, int j, const float* xin, float* sm,
-                        float* save_h, float* st) {
+// stats into st; also h itself into save_h when given (the backward), and
+// xin's rows as float32 into xcopy when given (the bf16 chain's trunk).
+// Warp w owns the columns 8 w .. 8 w + 7.
+template <bool TWIN, typename W, typename XIn>
+__device__ void phase_a(const ArgsT<W>& a, int j, const XIn* xin, float* sm,
+                        float* save_h, float* st, float* xcopy = nullptr) {
   const Lane l;
   const int D = a.D, T = a.T, D8 = (D + 7) & ~7;
   constexpr int NB = TWIN ? 2 : 1;
   float* s_x = sm + NSTAT;  // [TT][SD]
-  const float* wi = a.wi + (size_t)j * D * C;
+  const W* wi = a.wi + (size_t)j * D * C;
   const int n = 8 * l.w + l.g, col = 8 * l.w + 2 * l.tq;
   const size_t G = (size_t)a.B * a.ntile, BTC = (size_t)a.B * T * C;
   for (int tile = blockIdx.x; tile < a.B * a.ntile; tile += gridDim.x) {
     const int b = tile / a.ntile, it = tile % a.ntile, t0 = it * TT;
     const int rows = tile_rows(a, it);
+    const size_t row0 = ((size_t)b * T + t0) * D;
     CK_SYNC(PH_A, CK_OTHER);
-    stage_x(s_x, xin + ((size_t)b * T + t0) * D, D, D8, rows);
+    stage_x(s_x, xin + row0, D, D8, rows, xcopy ? xcopy + row0 : nullptr);
     CK_SYNC(PH_A, CK_STAGE);
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int k0 = 0; k0 < D8; k0 += 8) {
-      uint32_t ah[4], al[4], bh[2], bl[2];
-      frag_b(wi, C, k0 + 2 * l.tq, n, k0 + 2 * l.tq < D, bh, bl);
-      frag_a(s_x, SD, k0, l, ah, al);
-      mma3_add(acc, ah, al, bh, bl);
+      Product<W> pr;
+      pr.a(s_x, SD, k0, l);
+      pr.mac(acc, wi, C, k0 + 2 * l.tq, n, k0 + 2 * l.tq < D);
     }
     CK(PH_A, CK_PRODUCT);
     const bool ok0 = l.g < rows, ok1 = l.g + 8 < rows;
@@ -419,8 +537,8 @@ __device__ void phase_a(const Args& a, int j, const float* xin, float* sm,
 // dilated conv, gate, PReLU into a.pobuf, per-tile stats of it; the conv
 // outputs into save_cl/save_cr and the normalised branch inputs n into
 // save_n (2, B, T, C) when given (the backward).
-template <bool TWIN>
-__device__ void phase_b(const Args& a, int j, float* sm, float* save_cl,
+template <bool TWIN, typename W>
+__device__ void phase_b(const ArgsT<W>& a, int j, float* sm, float* save_cl,
                         float* save_cr, float* save_n, float* st) {
   const Lane l;
   const int T = a.T, K = a.K, dil = a.dil[j];
@@ -428,8 +546,8 @@ __device__ void phase_b(const Args& a, int j, float* sm, float* save_cl,
   float* s_mean = sm;
   float* s_inv = sm + 3 * C;
   float* s_win = sm + NSTAT;  // [NB][K][TT][SC]
-  const float* wl = a.wl + (size_t)j * K * C * C;
-  const float* wr = a.wr + (size_t)j * K * C * C;
+  const W* wl = a.wl + (size_t)j * K * C * C;
+  const W* wr = a.wr + (size_t)j * K * C * C;
   const int n = 8 * l.w + l.g, col = 8 * l.w + 2 * l.tq;
   const size_t G = (size_t)a.B * a.ntile, BTC = (size_t)a.B * T * C;
   int merged = -1;
@@ -469,14 +587,12 @@ __device__ void phase_b(const Args& a, int j, float* sm, float* save_cl,
     for (int i = 0; i < K; ++i) {
 #pragma unroll 2
       for (int k0 = 0; k0 < C; k0 += 8) {
-        uint32_t ah[4], al[4], bh[2], bl[2];
-        frag_b(wl + i * C * C, C, k0 + 2 * l.tq, n, true, bh, bl);
-        frag_a(s_win + i * TT * SC, SC, k0, l, ah, al);
-        mma3_add(accl, ah, al, bh, bl);
+        Product<W> pr;
+        pr.a(s_win + i * TT * SC, SC, k0, l);
+        pr.mac(accl, wl + i * C * C, C, k0 + 2 * l.tq, n, true);
         if (TWIN) {
-          frag_b(wr + i * C * C, C, k0 + 2 * l.tq, n, true, bh, bl);
-          frag_a(s_win + (K + i) * TT * SC, SC, k0, l, ah, al);
-          mma3_add(accr, ah, al, bh, bl);
+          pr.a(s_win + (K + i) * TT * SC, SC, k0, l);
+          pr.mac(accr, wr + i * C * C, C, k0 + 2 * l.tq, n, true);
         }
       }
     }
@@ -504,16 +620,18 @@ __device__ void phase_b(const Args& a, int j, float* sm, float* save_cl,
   }
 }
 
-// Phase C of TCM j: normalise the gate output, yout = xin + . @ wo[j]. Warp
-// w owns the output columns 8 (w + 8 u) .. + 7, u < 4.
-__device__ void phase_c(const Args& a, int j, const float* xin, float* yout,
-                        float* sm, const float* st) {
+// Phase C of TCM j: normalise the gate output, yout = xin + . @ wo[j]
+// (yout float32, or bf16 at the end of a bf16 chain). Warp w owns the
+// output columns 8 (w + 8 u) .. + 7, u < 4.
+template <typename W, typename YOut>
+__device__ void phase_c(const ArgsT<W>& a, int j, const float* xin,
+                        YOut* yout, float* sm, const float* st) {
   const Lane l;
   const int D = a.D, T = a.T;
   float* s_mean = sm;
   float* s_inv = sm + 3 * C;
   float* s_no = sm + NSTAT;  // [TT][SC]
-  const float* wo = a.wo + (size_t)j * C * D;
+  const W* wo = a.wo + (size_t)j * C * D;
   const size_t q = ((size_t)j * 3 + 2) * C;
   int merged = -1;
   for (int tile = blockIdx.x; tile < a.B * a.ntile; tile += gridDim.x) {
@@ -545,16 +663,13 @@ __device__ void phase_c(const Args& a, int j, const float* xin, float* yout,
     float acc[4][4] = {};
 #pragma unroll 2
     for (int k0 = 0; k0 < C; k0 += 8) {
-      uint32_t ah[4], al[4];
-      frag_a(s_no, SC, k0, l, ah, al);
+      Product<W> pr;
+      pr.a(s_no, SC, k0, l);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int n0 = 8 * (l.w + 8 * u);
-        if (n0 < D) {
-          uint32_t bh[2], bl[2];
-          frag_b(wo, D, k0 + 2 * l.tq, n0 + l.g, n0 + l.g < D, bh, bl);
-          mma3_add(acc[u], ah, al, bh, bl);
-        }
+        if (n0 < D)
+          pr.mac(acc[u], wo, D, k0 + 2 * l.tq, n0 + l.g, n0 + l.g < D);
       }
     }
     CK(PH_C, CK_PRODUCT);
@@ -574,21 +689,36 @@ __device__ void phase_c(const Args& a, int j, const float* xin, float* yout,
   }
 }
 
-template <bool TWIN>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) tcm_chain_fwd_kernel(Args a) {
+template <bool TWIN, typename W>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    tcm_chain_fwd_kernel(ArgsT<W> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4) + CK_FLOATS;
   cg::grid_group grid = cg::this_grid();
   ck_init();
   for (int j = 0; j < a.P; ++j) {
-    const float* xin = j == 0 ? a.x : a.y;
-    phase_a<TWIN>(a, j, xin, sm, nullptr, a.stats);
+    if constexpr (sizeof(W) == 2) {  // bf16: x read once into the trunk y
+      if (j == 0)
+        phase_a<TWIN>(a, j, a.x, sm, nullptr, a.stats, a.y);
+      else
+        phase_a<TWIN>(a, j, static_cast<const float*>(a.y), sm, nullptr,
+                      a.stats);
+    } else {
+      phase_a<TWIN>(a, j, j == 0 ? a.x : a.y, sm, nullptr, a.stats);
+    }
     grid.sync();
     CK(PH_A, CK_GRID);
     phase_b<TWIN>(a, j, sm, nullptr, nullptr, nullptr, a.stats);
     grid.sync();
     CK(PH_B, CK_GRID);
-    phase_c(a, j, xin, a.y, sm, a.stats);
+    if constexpr (sizeof(W) == 2) {  // the trunk, then y once in bf16
+      if (j + 1 < a.P)
+        phase_c(a, j, a.y, a.y, sm, a.stats);
+      else
+        phase_c(a, j, a.y, a.out, sm, a.stats);
+    } else {
+      phase_c(a, j, j == 0 ? a.x : a.y, a.y, sm, a.stats);
+    }
   }
   ck_flush();
 }
@@ -1260,9 +1390,10 @@ cudaError_t coop_grid(const void* kern, size_t smem, int n_tiles, int* grid,
   return cudaSuccess;
 }
 
+template <typename W = float>
 const void* fwd_kernel(bool twin) {
-  return twin ? (const void*)tcm_chain_fwd_kernel<true>
-              : (const void*)tcm_chain_fwd_kernel<false>;
+  return twin ? (const void*)tcm_chain_fwd_kernel<true, W>
+              : (const void*)tcm_chain_fwd_kernel<false, W>;
 }
 
 const void* bwd_kernel(bool twin) {
@@ -1270,21 +1401,26 @@ const void* bwd_kernel(bool twin) {
               : (const void*)tcm_chain_bwd_kernel<false>;
 }
 
+// The grid of the backward's walk (bwd), the forward, or the bf16 forward
+// (lowp)
 cudaError_t grid_of(bool bwd, bool twin, int K, int B, int T, int* grid,
-                    int* per_sm) {
-  return coop_grid(bwd ? bwd_kernel(twin) : fwd_kernel(twin),
+                    int* per_sm, bool lowp = false) {
+  return coop_grid(bwd ? bwd_kernel(twin)
+                       : lowp ? fwd_kernel<bf16>(twin) : fwd_kernel(twin),
                    smem_floats(twin, K) * sizeof(float),
                    B * ((T + TT - 1) / TT), grid, per_sm);
 }
 
-template <bool TWIN>
-cudaError_t launch(Args& a, cudaStream_t stream) {
+template <bool TWIN, typename W>
+cudaError_t launch(ArgsT<W>& a, cudaStream_t stream) {
+  constexpr bool LOWP = sizeof(W) == 2;
   int grid = 0, per_sm = 0;
-  cudaError_t err = grid_of(false, TWIN, a.K, a.B, a.T, &grid, &per_sm);
+  cudaError_t err =
+      grid_of(false, TWIN, a.K, a.B, a.T, &grid, &per_sm, LOWP);
   if (err != cudaSuccess) return err;
   void* params[] = {&a};
   const size_t smem = smem_floats(TWIN, a.K) * sizeof(float);
-  err = cudaLaunchCooperativeKernel(fwd_kernel(TWIN), dim3(grid), dim3(NT),
+  err = cudaLaunchCooperativeKernel(fwd_kernel<W>(TWIN), dim3(grid), dim3(NT),
                                     params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1312,12 +1448,13 @@ bool bad_shape(int B, int T, int D, int K, int P) {
          P < 1 || P > MAXP;
 }
 
-void fill_args(Args& a, const float* x, const float* wi, const float* wl,
-               const float* wr, const float* wo, const float* al,
-               const float* ga, const float* be, float* y, float* work, int B,
-               int T, int D, int K, int P, const int* dils) {
+template <typename W>
+void fill_args(ArgsT<W>& a, const W* x, const W* wi, const W* wl, const W* wr,
+               const W* wo, const W* al, const W* ga, const W* be, float* y,
+               float* work, int B, int T, int D, int K, int P,
+               const int* dils) {
   a.x = x; a.wi = wi; a.wl = wl; a.wr = wr; a.wo = wo;
-  a.al = al; a.ga = ga; a.be = be; a.y = y;
+  a.al = al; a.ga = ga; a.be = be; a.y = y; a.out = nullptr;
   a.pbuf = work;
   a.pobuf = work + 2LL * B * T * C;
   a.stats = work + 3LL * B * T * C;
@@ -1383,13 +1520,33 @@ extern "C" int eabnet_tcm_chain_fwd(const float* x, const float* wi,
   return twin ? launch<true>(a, s) : launch<false>(a, s);
 }
 
+// The serving forward with bf16 operands: as eabnet_tcm_chain_fwd with x,
+// the weights, the tables and y in bfloat16; work holds
+// eabnet_tcm_chain_workspace(B, T) + B T D floats (the float32 trunk last).
+extern "C" int eabnet_tcm_chain_fwd_bf16(const bf16* x, const bf16* wi,
+                                         const bf16* wl, const bf16* wr,
+                                         const bf16* wo, const bf16* al,
+                                         const bf16* ga, const bf16* be,
+                                         bf16* y, float* work, int B, int T,
+                                         int D, int K, int P, const int* dils,
+                                         int twin, void* stream) {
+  if (bad_shape(B, T, D, K, P)) return cudaErrorInvalidValue;
+  ArgsT<bf16> a;
+  fill_args(a, x, wi, wl, wr, wo, al, ga, be,
+            work + eabnet_tcm_chain_workspace(B, T), work, B, T, D, K, P,
+            dils);
+  a.out = y;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return twin ? launch<true>(a, s) : launch<false>(a, s);
+}
+
 // The cooperative launch's geometry on the current device: out = {blocks,
-// co-resident blocks per SM}, for the forward (bwd = 0) or the backward's
-// walk (bwd = 1). Returns a cudaError_t.
-extern "C" int eabnet_tcm_chain_geometry(int bwd, int twin, int K, int B,
-                                         int T, int* out) {
+// co-resident blocks per SM}, for the forward (bwd = 0; its bf16 variant
+// with lowp = 1) or the backward's walk (bwd = 1). Returns a cudaError_t.
+extern "C" int eabnet_tcm_chain_geometry(int bwd, int lowp, int twin, int K,
+                                         int B, int T, int* out) {
   if (bad_shape(B, T, 4, K, 1)) return cudaErrorInvalidValue;
-  return grid_of(bwd != 0, twin != 0, K, B, T, &out[0], &out[1]);
+  return grid_of(bwd != 0, twin != 0, K, B, T, &out[0], &out[1], lowp != 0);
 }
 
 // Floats of scratch for one backward launch (negative on a CUDA error).

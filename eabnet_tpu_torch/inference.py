@@ -9,6 +9,12 @@ the LSTM head and the causal IN TCN groups go through the hand-written
 kernels, on ``"cpu"`` through their plain versions. Like the JAX
 package's, the Enhancer applies params only, so batch-norm models are not
 served.
+
+``compute_dtype`` is the JAX package's: ``"float32"``; ``"bfloat16"``, the
+whole model in bf16 (the kernels' bf16 variants on the card); or
+``"int8w"``, weights-only int8 (``utils/quantize.py``) kept packed on the
+device and dequantized to bf16 inside each call. The STFT front end and
+the iSTFT run in float32 in every mode.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
 from eabnet_tpu_torch.config import ExperimentConfig
@@ -26,7 +33,11 @@ from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.models.eabnet import to_reference_layout
 from eabnet_tpu_torch.utils.audio_io import read_wav, resample, write_wav
 from eabnet_tpu_torch.utils.precision import float32_products
+from eabnet_tpu_torch.utils.quantize import (PackedWeights, pack_for_module,
+                                             quantize_weights_int8)
 from eabnet_tpu_torch.weights import load_jax_params
+
+COMPUTE_DTYPES = ("float32", "bfloat16", "int8w")
 
 
 class Enhancer:
@@ -36,7 +47,9 @@ class Enhancer:
     a guaranteed zero tail of n_fft/2 + 1 samples first unless ``pad_mode``
     is ``"reference"``, as the JAX package's Enhancer does. ``output``
     picks the stage: ``"esti"`` (beamformer + post-filter) or ``"esti0"``
-    (beamformer alone).
+    (beamformer alone). ``compute_dtype``: see the module doc; in
+    ``"int8w"`` the model's own parameters live on the meta device and the
+    packed ones (``self.packed``) on ``device``.
     """
 
     def __init__(self, cfg: ExperimentConfig, params: dict,
@@ -50,10 +63,9 @@ class Enhancer:
         if pad_mode not in ("tail", "reference"):
             raise ValueError(f"pad_mode must be 'tail' or 'reference', "
                              f"got {pad_mode!r}")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the port runs float32 "
-                "only; bfloat16 and int8w serving are later slices")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {compute_dtype!r}")
         if mesh is not None or shard_freq:
             raise NotImplementedError(
                 "mesh / shard_freq: multi-card serving is a later slice of "
@@ -68,8 +80,24 @@ class Enhancer:
         self.pad_mode = pad_mode
         self.device = torch.device(device)
         self.bucket = max(1, int(bucket_seconds * cfg.stft.sr))
-        self.model = load_jax_params(build_model(cfg.model), params)
-        self.model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
+        self.dtype = (torch.float32 if compute_dtype == "float32"
+                      else torch.bfloat16)
+        self.packed = None
+        if compute_dtype == "int8w":
+            self.model = build_model(cfg.model).to("meta").eval()
+            self.packed = PackedWeights(pack_for_module(
+                self.model, quantize_weights_int8(params)), self.device)
+        else:
+            self.model = load_jax_params(build_model(cfg.model), params)
+            self.model.to(self.device, self.dtype).eval()
+
+    def param_bytes(self) -> int:
+        """Bytes of the parameters resident on ``device``: the model's in
+        float32 and bfloat16, the packed values and scales in int8w."""
+        if self.packed is not None:
+            return self.packed.nbytes()
+        return sum(p.nbytes for p in self.model.parameters())
 
     @torch.no_grad()
     def enhance_tensor(self, batch: torch.Tensor) -> torch.Tensor:
@@ -80,7 +108,14 @@ class Enhancer:
 
     def _enhance(self, batch: torch.Tensor) -> torch.Tensor:
         noisy_stft, _ = prepare_data(batch, None, self.cfg.stft)
-        esti = self.model(noisy_stft)[self.output]
+        noisy_stft = noisy_stft.to(self.dtype)
+        if self.packed is not None:
+            # no parameter is tied, so the tied-weight search is skipped
+            out = functional_call(self.model, self.packed.dequantize(
+                self.dtype), (noisy_stft,), tie_weights=False)
+        else:
+            out = self.model(noisy_stft)
+        esti = out[self.output].float()
         return stft_to_wav(to_reference_layout(esti), self.cfg.stft)
 
     def __call__(self, noisy: np.ndarray,

@@ -14,6 +14,12 @@ MLP after the recurrence stay outside the kernels (``models/eabnet.py``).
 
 Weights are in the JAX package's layout: ``w_hh1`` (H, 4H), ``w_ih2`` and
 ``w_hh2`` (H, 4H), ``b2 = b_ih2 + b_hh2`` (4H,), gate order i, f, g, o.
+
+bfloat16 serving follows the Pallas kernel's semantics (``wdt`` there):
+xw1 and the weights come in bf16, every product is the float32 product of
+bf16 operands with a float32 sum (h rounded to bf16 where it enters a
+product), the carried (h, c) and the gates stay float32, and h2 comes out
+in bf16. bf16 runs without autograd only: its backward is not ported.
 """
 
 from __future__ import annotations
@@ -33,18 +39,29 @@ def _cell(gates, c_prev):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
+def _operand(h: torch.Tensor, lowp: bool) -> torch.Tensor:
+    """h as a product operand: rounded to bf16 (and back) in bf16 mode."""
+    return h.to(torch.bfloat16).to(h.dtype) if lowp else h
+
+
 def double_lstm_states_reference(xw1, w_hh1, w_ih2, w_hh2, b2
                                  ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch: xw1 (T, L, 4H) -> the sequences (h1, c1, h2, c2),
-    each (T, L, H); the training forward kernel's outputs."""
+    each (T, L, H); the training forward kernel's outputs. With bf16
+    arguments, float32 sequences of the bf16 semantics (module doc)."""
+    lowp = xw1.dtype == torch.bfloat16
+    if lowp:
+        xw1, w_hh1, w_ih2, w_hh2, b2 = (
+            a.float() for a in (xw1, w_hh1, w_ih2, w_hh2, b2))
     t, l, g4 = xw1.shape
     zeros = xw1.new_zeros((l, g4 // 4))
     h1, c1, h2, c2 = zeros, zeros, zeros, zeros
     w2 = torch.cat([w_ih2, w_hh2], dim=0)
     seqs = ([], [], [], [])
     for step in range(t):
-        h1, c1 = _cell(xw1[step] + h1 @ w_hh1, c1)
-        h2, c2 = _cell(torch.cat([h1, h2], dim=-1) @ w2 + b2, c2)
+        h1, c1 = _cell(xw1[step] + _operand(h1, lowp) @ w_hh1, c1)
+        h2, c2 = _cell(_operand(torch.cat([h1, h2], dim=-1), lowp) @ w2
+                       + b2, c2)
         for seq, v in zip(seqs, (h1, c1, h2, c2)):
             seq.append(v)
     return tuple(torch.stack(s) for s in seqs)
@@ -53,8 +70,10 @@ def double_lstm_states_reference(xw1, w_hh1, w_ih2, w_hh2, b2
 def double_lstm_reference(xw1: torch.Tensor, w_hh1: torch.Tensor,
                           w_ih2: torch.Tensor, w_hh2: torch.Tensor,
                           b2: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch: xw1 (T, L, 4H) -> layer-2 hiddens h2 (T, L, H)."""
-    return double_lstm_states_reference(xw1, w_hh1, w_ih2, w_hh2, b2)[2]
+    """Plain PyTorch: xw1 (T, L, 4H) -> layer-2 hiddens h2 (T, L, H), in
+    xw1's dtype."""
+    return double_lstm_states_reference(
+        xw1, w_hh1, w_ih2, w_hh2, b2)[2].to(xw1.dtype)
 
 
 def _cell_bwd(dh, dc, c_prev, c_new, gates):
@@ -101,8 +120,15 @@ def double_lstm_bwd_reference(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2,
 
 def _check(xw1, w_hh1, w_ih2, w_hh2, b2):
     tensors = (xw1, w_hh1, w_ih2, w_hh2, b2)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("double_lstm runs float32 only in this slice")
+    if xw1.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != xw1.dtype for t in tensors):
+        raise TypeError("double_lstm takes all float32 or all bfloat16 "
+                        "tensors, got " + ", ".join(str(t.dtype)
+                                                    for t in tensors))
+    if xw1.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise TypeError("double_lstm: bfloat16 runs without autograd (the "
+                        "bfloat16 backward is not ported)")
     if any(t.device != xw1.device for t in tensors):
         raise ValueError("double_lstm: all tensors must be on one device")
     if xw1.dim() != 3 or xw1.shape[-1] % 4 or xw1.shape[0] < 1 \
@@ -134,12 +160,16 @@ def _launch_fwd(xw1, w_hh1, w_ih2, w_hh2, b2, states: bool):
     t, l, g4 = xw1.shape
     if g4 != 4 * H_KERNEL:
         raise ValueError(f"double_lstm kernel takes H=64, got H={g4 // 4}")
-    if not xw1.is_contiguous():
-        raise ValueError("double_lstm: xw1 must be contiguous")
+    if not xw1.is_contiguous() or xw1.data_ptr() % 16:
+        raise ValueError("double_lstm: xw1 must be contiguous and 16-byte "
+                         "aligned")
+    if states and xw1.dtype != torch.float32:
+        raise TypeError("double_lstm: the training forward runs float32 "
+                        "only")
     w2 = torch.cat([w_ih2, w_hh2], dim=0)
     ins = (xw1, w_hh1.contiguous(), w2, b2.contiguous())
     lib = load_library()
-    outs = [torch.empty((t, l, H_KERNEL), dtype=torch.float32,
+    outs = [torch.empty((t, l, H_KERNEL), dtype=xw1.dtype,
                         device=xw1.device) for _ in range(4 if states else 1)]
     stream = torch.cuda.current_stream(xw1.device).cuda_stream
     with torch.cuda.device(xw1.device):
@@ -148,9 +178,11 @@ def _launch_fwd(xw1, w_hh1, w_ih2, w_hh2, b2, states: bool):
                 *(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs),
                 t, l, stream)
         else:
-            err = lib.lib.eabnet_lstm_bf_fwd(
-                *(a.data_ptr() for a in ins), outs[0].data_ptr(), t, l,
-                stream)
+            fn = (lib.lib.eabnet_lstm_bf_fwd_bf16
+                  if xw1.dtype == torch.bfloat16
+                  else lib.lib.eabnet_lstm_bf_fwd)
+            err = fn(*(a.data_ptr() for a in ins), outs[0].data_ptr(), t, l,
+                     stream)
     lib.check(err, "double_lstm kernel launch")
     double_lstm.launches += 1
     return tuple(outs) if states else outs[0]
@@ -202,8 +234,10 @@ def double_lstm(xw1: torch.Tensor, w_hh1: torch.Tensor, w_ih2: torch.Tensor,
                 w_hh2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """xw1 (T, L, 4H) -> h2 (T, L, H): the plain version on a CPU tensor
     (autograd of it is the gradient there), the CUDA kernels on a CUDA
-    tensor. Forward launches are counted in ``double_lstm.launches``,
-    backward launches in ``double_lstm.bwd_launches``."""
+    tensor. bfloat16 tensors take the bf16 semantics (module doc) and the
+    bf16 serving kernel. Forward launches of either dtype are counted in
+    ``double_lstm.launches``, backward launches in
+    ``double_lstm.bwd_launches``."""
     _check(xw1, w_hh1, w_ih2, w_hh2, b2)
     if xw1.device.type == "cpu":
         return double_lstm_reference(xw1, w_hh1, w_ih2, w_hh2, b2)

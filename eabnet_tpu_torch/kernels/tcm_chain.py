@@ -15,6 +15,15 @@ Weights come stacked over the group's p TCMs, as
 ``(wi (p, D, C), wl (p, K, C, C), wr (p, K, C, C), wo (p, C, D),
 alphas, gammas, betas (p, 3, C))`` with conv taps as (tap, in, out) and
 the (p, 3, C) rows ``[branch L, branch R (L again when single), out]``.
+
+bfloat16 serving follows the Pallas kernel's semantics (``wdt`` there): x
+and every weight come in bf16; each product is the float32 product of
+bf16 operands with a float32 sum (its activation operand rounded to bf16
+where it enters the product); the trunk stays float32 between the TCMs of
+the group and is rounded to bf16 once, at the group's output; the PReLU,
+the gate and the IN statistics are float32, with the slopes, scales and
+biases read as float32 from their bf16 values. bf16 runs without autograd
+only: its backward is not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +52,11 @@ def _instance_norm_t(x, gamma, beta):
     return (x - mean) * torch.rsqrt(var + EPS) * gamma + beta
 
 
+def _operand(v: torch.Tensor, lowp: bool) -> torch.Tensor:
+    """v as a product operand: rounded to bf16 (and back) in bf16 mode."""
+    return v.to(torch.bfloat16).to(v.dtype) if lowp else v
+
+
 def _causal_conv(n, w, dil):
     """sum_i shift_down(n, (K-1-i) dil) @ w[i] on (B, T, C); w (K, C, C)."""
     k, t = w.shape[0], n.shape[1]
@@ -56,19 +70,28 @@ def _causal_conv(n, w, dil):
 
 
 def tcm_chain_reference(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
-                        dilations: Sequence[int], twin: bool) -> torch.Tensor:
-    """Plain PyTorch chain of p TCMs on x (B, T, D) -> (B, T, D)."""
+                        dilations: Sequence[int], twin: bool, *,
+                        compute=torch.float32) -> torch.Tensor:
+    """Plain PyTorch chain of p TCMs on x (B, T, D) -> (B, T, D), in x's
+    dtype. bf16 weights: the semantics of the module doc, computed in
+    ``compute`` around the bf16 operands (float32; float64 measures how far
+    float32 rounding alone moves them). As in the Pallas kernel, x may be
+    float32 with bf16 weights: the trunk then enters and leaves unrounded
+    (one TCM of a chain, on its float32 trunk input)."""
+    dtype, lowp = x.dtype, weights[0].dtype == torch.bfloat16
+    if lowp:
+        x, weights = x.to(compute), tuple(w.to(compute) for w in weights)
     wi, wl, wr, wo, al, ga, be = weights
     for j, dil in enumerate(dilations):
-        h = x @ wi[j]
+        h = _operand(x, lowp) @ wi[j]
         convs = []
         for bi, w in ((0, wl), (1, wr))[:2 if twin else 1]:
             n = _instance_norm_t(_prelu(h, al[j, bi]), ga[j, bi], be[j, bi])
-            convs.append(_causal_conv(n, w[j], dil))
+            convs.append(_causal_conv(_operand(n, lowp), w[j], dil))
         g = convs[0] * torch.sigmoid(convs[1]) if twin else convs[0]
         no = _instance_norm_t(_prelu(g, al[j, 2]), ga[j, 2], be[j, 2])
-        x = x + no @ wo[j]
-    return x
+        x = x + _operand(no, lowp) @ wo[j]
+    return x.to(dtype)
 
 
 def _prelu_bwd(x, alpha, dy):
@@ -205,8 +228,15 @@ def tcm_chain_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
 
 def _check(x, weights, dilations):
     tensors = (x,) + tuple(weights)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("tcm_chain runs float32 only in this slice")
+    if x.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != x.dtype for t in tensors):
+        raise TypeError("tcm_chain takes all float32 or all bfloat16 "
+                        "tensors, got " + ", ".join(str(t.dtype)
+                                                    for t in tensors))
+    if x.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise TypeError("tcm_chain: bfloat16 runs without autograd (the "
+                        "bfloat16 backward is not ported)")
     if any(t.device != x.device for t in tensors):
         raise ValueError("tcm_chain: all tensors must be on one device")
     if x.dim() != 3:
@@ -232,40 +262,78 @@ def _kernel_check(x, weights, dilations):
         raise ValueError(
             f"tcm_chain kernel takes C=64, D<=256 (multiple of 4), K<=8, "
             f"p<=16; got C={c}, D={d}, K={k}, p={p}")
-    if not all(w.is_contiguous() for w in (x,) + tuple(weights)):
-        raise ValueError("tcm_chain: tensors must be contiguous")
+    if not all(w.is_contiguous() and w.data_ptr() % 16 == 0
+               for w in (x,) + tuple(weights)):
+        raise ValueError("tcm_chain: tensors must be contiguous and 16-byte "
+                         "aligned")
     return b, t, d, k, p
 
 
-def geometry(b: int, t: int, k: int, twin: bool, backward: bool) -> dict:
-    """The cooperative launch of the forward (or the backward's walk) at
-    (B, T) on the current device: its tiles, blocks, co-resident blocks per
-    SM, and the most and the mean tile rounds per block."""
+def geometry(b: int, t: int, k: int, twin: bool, backward: bool,
+             lowp: bool = False) -> dict:
+    """The cooperative launch of the forward (its bf16 variant with
+    ``lowp``, or the backward's walk) at (B, T) on the current device: its
+    tiles, blocks, co-resident blocks per SM, and the most and the mean
+    tile rounds per block."""
     lib = load_library()
     out = (ctypes.c_int * 2)()
-    err = lib.lib.eabnet_tcm_chain_geometry(int(backward), int(twin), k, b,
-                                            t, out)
+    err = lib.lib.eabnet_tcm_chain_geometry(int(backward), int(lowp),
+                                            int(twin), k, b, t, out)
     lib.check(err, "tcm_chain geometry")
     tiles = b * -(-t // TILE_FRAMES)
     return dict(tiles=tiles, blocks=out[0], blocks_per_sm=out[1],
                 rounds_max=-(-tiles // out[0]), rounds_mean=tiles / out[0])
 
 
-def _launch_fwd(x, weights, dilations, twin):
+def _launch_fwd(x, weights, dilations, twin, trunk=False):
+    """The forward kernel -> y, and with ``trunk`` (bf16 only) also a copy
+    of the float32 trunk left in the workspace: the trunk input of the
+    chain's last TCM (that TCM writes only y)."""
     b, t, d, k, p = _kernel_check(x, weights, dilations)
     lib = load_library()
     y = torch.empty_like(x)
-    work = torch.empty(int(lib.lib.eabnet_tcm_chain_workspace(b, t)),
-                       dtype=torch.float32, device=x.device)
+    lowp = x.dtype == torch.bfloat16
+    # bf16: a float32 trunk (B, T, D) after the forward's scratch
+    n_work = int(lib.lib.eabnet_tcm_chain_workspace(b, t)) + (
+        b * t * d if lowp else 0)
+    work = torch.empty(n_work, dtype=torch.float32, device=x.device)
     dils = (ctypes.c_int * p)(*dilations)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = (lib.lib.eabnet_tcm_chain_fwd_bf16 if lowp
+          else lib.lib.eabnet_tcm_chain_fwd)
     with torch.cuda.device(x.device):
-        err = lib.lib.eabnet_tcm_chain_fwd(
-            x.data_ptr(), *(w.data_ptr() for w in weights), y.data_ptr(),
-            work.data_ptr(), b, t, d, k, p, dils, int(twin), stream)
+        err = fn(x.data_ptr(), *(w.data_ptr() for w in weights),
+                 y.data_ptr(), work.data_ptr(), b, t, d, k, p, dils,
+                 int(twin), stream)
     lib.check(err, "tcm_chain kernel launch")
     tcm_chain.launches += 1
-    return y
+    if not trunk:
+        return y
+    if not lowp:
+        raise ValueError("tcm_chain: only the bf16 forward keeps its trunk "
+                         "in the workspace")
+    return y, work[n_work - b * t * d:].view(b, t, d).clone()
+
+
+def bf16_trunks(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
+                dilations: Sequence[int], twin: bool) -> list:
+    """The bf16 forward kernel's float32 trunk after each TCM of the chain
+    on a bf16 x (B, T, D) on the card -> p float32 (B, T, D) tensors. The
+    trunk after TCM j is read from a launch of TCMs 0 .. j followed by TCM
+    j again: it is the trunk input of that launch's last TCM. So TCM j is
+    seen alone, on the kernel's own float32 trunk input (the trunk after
+    TCM j - 1), with no bf16 rounding of its output."""
+    _check(x, weights, dilations)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("bf16_trunks: reads the bf16 kernel's workspace; "
+                         "takes bf16 tensors on the card")
+    out = []
+    for j in range(len(dilations)):
+        pick = list(range(j + 1)) + [j]
+        w = tuple(v[pick].contiguous() for v in weights)
+        out.append(_launch_fwd(x, w, [int(dilations[i]) for i in pick],
+                               twin, trunk=True)[1])
+    return out
 
 
 def _launch_bwd(x, dy, weights, dilations, twin, activations=False):
@@ -332,8 +400,10 @@ def tcm_chain(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
               dilations: Sequence[int], twin: bool) -> torch.Tensor:
     """Run one SqueezedTCNGroup: the plain version on a CPU tensor
     (autograd of it is the gradient there), the CUDA kernels on a CUDA
-    tensor. Forward launches are counted in ``tcm_chain.launches``,
-    backward launches in ``tcm_chain.bwd_launches``."""
+    tensor. bfloat16 tensors take the bf16 semantics (module doc) and the
+    bf16 forward kernel. Forward launches of either dtype are counted in
+    ``tcm_chain.launches``, backward launches in
+    ``tcm_chain.bwd_launches``."""
     _check(x, weights, dilations)
     if x.device.type == "cpu":
         return tcm_chain_reference(x, weights, dilations, twin)

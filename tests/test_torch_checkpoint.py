@@ -47,6 +47,31 @@ def test_reader_decodes_every_type_flax_writes():
     np.testing.assert_array_equal(ours["f"], tree["f"])
 
 
+def test_reader_decodes_bfloat16_as_flax_does():
+    """A bf16 tree written by flax.serialization (arrays and a scalar,
+    with inf, nan and -0) decodes to float32 arrays of flax's values,
+    exactly: a bf16 value is the high half of that float32."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    tree = {"w": np.asarray(jnp.asarray(rng.standard_normal((3, 70)),
+                                        jnp.bfloat16)),
+            "edge": np.asarray(jnp.asarray([np.inf, -np.inf, np.nan, -0.0,
+                                            1e-40, 3.0e38], jnp.bfloat16)),
+            "s": np.asarray(jnp.bfloat16(-1.5))[()],
+            "n": {"empty": np.asarray(jnp.zeros((0, 2), jnp.bfloat16))}}
+    data = serialization.msgpack_serialize(tree)
+    ours = flatten_tree(checkpoint.msgpack_restore(data))
+    ref = flatten_tree(serialization.msgpack_restore(data))
+    assert ours.keys() == ref.keys()
+    for k, v in ref.items():
+        assert ours[k].dtype == np.float32 and ours[k].shape == v.shape, k
+        np.testing.assert_array_equal(ours[k], np.asarray(v, np.float32),
+                                      err_msg=k)
+        # bit for bit, -0 and nan included
+        assert ours[k].tobytes() == np.asarray(v, np.float32).tobytes(), k
+
+
 def test_reader_rejects_damaged_data():
     data = serialization.msgpack_serialize({"w": np.ones(8, np.float32)})
     with pytest.raises(ValueError):

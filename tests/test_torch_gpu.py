@@ -19,7 +19,8 @@ import torch
 
 from eabnet_tpu_torch.kernels.lstm_bf import (double_lstm,
                                               double_lstm_reference)
-from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain, tcm_chain_reference
+from eabnet_tpu_torch.kernels.tcm_chain import (bf16_trunks, tcm_chain,
+                                                tcm_chain_reference)
 from eabnet_tpu_torch.nn.blocks import SqueezedTCNGroup
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -399,3 +400,153 @@ def test_train_step_on_card_matches_cpu(cuda):
         mu_a, mu_b = cpu.opt_state.mu[name], card.opt_state.mu[name].cpu()
         assert (mu_a - mu_b).abs().max().item() <= \
             0.05 * mu_a.abs().max().item(), name
+
+
+# ------------------------------------------------------------------ bf16
+# The bf16 serving kernels against their plain versions, and both released
+# models in bf16 and int8w against the JAX package's goldens. Rules
+# (PERF.md §2, tests/test_torch_lowp.py): R is the SNR between the plain
+# bf16 and plain float32 versions (TF32 off). A kernel must reach R + 20 dB
+# against its plain version: the LSTM-BF forward over its sequence, the
+# TCM chain one TCM at a time (float32 trunk in and out). The whole TCM
+# chain is checked beside it at min(R + 20, D - 3) dB, D between the plain
+# bf16 version computed in float32 and in float64 around the same bf16
+# operands. A model must reach R - 6 dB against the JAX bf16 (int8w: JAX
+# int8w) golden and, in bf16, R - 3 against the JAX float32 one, with R
+# between the two JAX goldens.
+BF16 = torch.bfloat16
+RELEASE_LOWP = [("composed_9mic", (1, 21)), ("eabnet_9mic_cln", (1, 0))]
+
+
+def snr_db(ref, est):
+    ref, est = (np.asarray(a, np.float64) for a in (ref, est))
+    return 10 * np.log10(np.sum(ref ** 2) / np.sum((ref - est) ** 2))
+
+
+def kernel_rule(out, ref16, ref32, wide=None):
+    """SNR of the kernel against the plain bf16 version, and its bound: R +
+    20, or with ``wide`` (a whole TCM chain) min(R + 20, D - 3)."""
+    f = [a.float().cpu().numpy() for a in (out, ref16, ref32)]
+    need = snr_db(f[2], f[1]) + 20.0
+    if wide is not None:
+        need = min(need, snr_db(wide.float().cpu().numpy(), f[1]) - 3.0)
+    return snr_db(f[1], f[0]), need
+
+
+@pytest.fixture(scope="module")
+def release_model():
+    from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.models import build_model
+    from eabnet_tpu_torch.weights import load_jax_params
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    exp = os.path.join(ROOT, "release", "composed_9mic")
+    cfg = ExperimentConfig.load(os.path.join(exp, "config.json"))
+    return load_jax_params(build_model(cfg.model),
+                           load_params(latest_checkpoint(exp))).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [161, 1127])
+def test_lstm_bf16_kernel_matches_plain_on_card(cuda, release_model, l):
+    r1, r2 = release_model.eabnet.bf_map.rnn1, release_model.eabnet.bf_map.rnn2
+    g = torch.Generator(device=cuda).manual_seed(l)
+    x = torch.randn((701, l, 64), generator=g, device=cuda)
+    with torch.no_grad():
+        xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).contiguous()
+        a32 = (xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
+        a16 = tuple(a.to(BF16).contiguous() for a in a32)
+        before = double_lstm.launches
+        out, again = double_lstm(*a16), double_lstm(*a16)
+        assert double_lstm.launches == before + 2
+        got, need = kernel_rule(out, double_lstm_reference(*a16),
+                                double_lstm_reference(*a32))
+    assert out.dtype == BF16 and out.shape == (701, l, 64)
+    assert torch.equal(out, again)
+    assert got >= need, (got, need)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("which", ["twin", "single"])
+def test_tcm_bf16_kernel_matches_plain_on_card(cuda, release_model, which,
+                                               b):
+    group = (release_model.eabnet.stcn_0 if which == "twin"
+             else release_model.postnet.gag_0.glance.tcn_0)
+    dils, twin = group.dilations, group.twin_gate
+    g = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn((b, 701, 256), generator=g, device=cuda)
+    with torch.no_grad():
+        w32 = group.stacked_weights()
+        w16 = tuple(w.to(BF16).contiguous() for w in w32)
+        x16 = x.to(BF16)
+        before = tcm_chain.launches
+        out, again = (tcm_chain(x16, w16, dils, twin),
+                      tcm_chain(x16, w16, dils, twin))
+        assert tcm_chain.launches == before + 2
+        got, need = kernel_rule(out, tcm_chain_reference(x16, w16, dils, twin),
+                                tcm_chain_reference(x, w32, dils, twin),
+                                tcm_chain_reference(x16, w16, dils, twin,
+                                                    compute=torch.float64))
+    assert out.dtype == BF16 and torch.equal(out, again)
+    assert got >= need, (got, need)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("which", ["twin", "single"])
+def test_tcm_bf16_kernel_each_tcm_matches_plain_on_card(cuda, release_model,
+                                                        which, b):
+    """TCM j of the bf16 kernel alone, on the kernel's own float32 trunk
+    input (its trunk after TCM j - 1), its float32 output against the plain
+    version's on the same input: R + 20 dB. A trunk rounded to bf16
+    between the TCMs, or an activation operand left unrounded, fails it."""
+    group = (release_model.eabnet.stcn_0 if which == "twin"
+             else release_model.postnet.gag_0.glance.tcn_0)
+    dils, twin = group.dilations, group.twin_gate
+    g = torch.Generator(device=cuda).manual_seed(10 + b)
+    x16 = torch.randn((b, 701, 256), generator=g, device=cuda).to(BF16)
+    with torch.no_grad():
+        w32 = group.stacked_weights()
+        w16 = tuple(w.to(BF16).contiguous() for w in w32)
+        trunks = bf16_trunks(x16, w16, dils, twin)
+        trunk = x16.float()
+        for j, dil in enumerate(dils):
+            ref32, ref16 = (tcm_chain_reference(
+                trunk, tuple(w[j:j + 1] for w in ws), (dil,), twin)
+                for ws in (w32, w16))
+            r = snr_db(ref32.cpu(), ref16.cpu())
+            got = snr_db(ref16.cpu(), trunks[j].cpu())
+            assert got >= r + 20.0, (j, got, r)
+            trunk = trunks[j]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8w"])
+@pytest.mark.parametrize("model,launches", RELEASE_LOWP,
+                         ids=[m for m, _ in RELEASE_LOWP])
+def test_release_lowp_on_card_matches_goldens(cuda, model, launches, dtype):
+    """Both stages through the bf16 kernels (launches per forward as in
+    float32) against the JAX package's goldens by the model rule."""
+    from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    gold = os.path.join(ROOT, "tests", "golden", f"torch_port_{model}_00000")
+    g32, glow = np.load(gold + ".npz"), np.load(gold + "_lowp.npz")
+    _, noisy = read_wav(os.path.join(ROOT, "release", "val_set", "noisy",
+                                     "00000.wav"))
+    enh = load_enhancer(os.path.join(ROOT, "release", model),
+                        compute_dtype=dtype, device="cuda")
+    for stage in ("esti", "esti0"):
+        enh.output = stage
+        l0, t0 = double_lstm.launches, tcm_chain.launches
+        out = enh(noisy)
+        assert (double_lstm.launches - l0,
+                tcm_chain.launches - t0) == launches
+        assert out.shape == (96000,) and np.isfinite(out).all()
+        r = snr_db(g32[stage], glow[f"{stage}_bfloat16"])
+        assert snr_db(glow[f"{stage}_{dtype}"], out) >= r - 6.0, stage
+        if dtype == "bfloat16":
+            assert snr_db(g32[stage], out) >= r - 3.0, stage

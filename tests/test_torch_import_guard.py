@@ -30,7 +30,8 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.train.loggers", "eabnet_tpu_torch.cli.train",
             "eabnet_tpu_torch.data.datasets", "eabnet_tpu_torch.streaming",
             "eabnet_tpu_torch.nn.lstm", "eabnet_tpu_torch.cli.stream",
-            "eabnet_tpu_torch.nn.stepping"} <= set(mods)
+            "eabnet_tpu_torch.nn.stepping",
+            "eabnet_tpu_torch.utils.quantize"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

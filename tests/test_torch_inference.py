@@ -74,15 +74,28 @@ def test_pad_modes_differ_only_at_the_end():
 
 
 def test_options_outside_the_slice_are_refused():
+    """Meshes and frequency sharding are refused; bfloat16 and int8w, once
+    refused, now serve on the CPU (finite, the output's shape, close to
+    float32 by tests/test_quantize.py's criteria); an unknown compute
+    dtype is a ValueError, as in the JAX package."""
     cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
-    for kw in ({"compute_dtype": "bfloat16"}, {"compute_dtype": "int8w"},
-               {"mesh": object()}, {"shard_freq": True}):
+    for kw in ({"mesh": object()}, {"shard_freq": True}):
         with pytest.raises(NotImplementedError):
             Enhancer(cfg, {}, device="cpu", **kw)
     with pytest.raises(ValueError):
         Enhancer(cfg, {}, output="esti2", device="cpu")
     with pytest.raises(ValueError):
         Enhancer(cfg, {}, pad_mode="none", device="cpu")
+    with pytest.raises(ValueError):
+        Enhancer(cfg, {}, compute_dtype="float16", device="cpu")
+    x = noisy(16000, 9)
+    ref = load_enhancer(EXP, output="esti0", device="cpu")(x)
+    for dtype in ("bfloat16", "int8w"):
+        out = load_enhancer(EXP, output="esti0", compute_dtype=dtype,
+                            device="cpu")(x)
+        assert out.shape == (16000,) and np.isfinite(out).all(), dtype
+        err = np.linalg.norm(out - ref) / np.linalg.norm(ref)
+        assert err < 0.15 and np.corrcoef(out, ref)[0, 1] > 0.99, dtype
 
 
 def test_cln_release_is_refused_not_rerouted():
@@ -120,6 +133,23 @@ def test_cli_enhances_a_short_wav(tmp_path, enhancer):
     sr, y = read_wav(str(dst))
     assert sr == 16000 and y.shape == (8000,)
     np.testing.assert_allclose(y, enhancer(x), atol=1e-6)
+
+
+def test_cli_compute_dtype(tmp_path):
+    """--compute-dtype reaches the Enhancer: the CLI's bf16 and int8w
+    outputs are the library's on the CPU."""
+    x = noisy(6000, 10)
+    src = tmp_path / "in.wav"
+    write_wav(str(src), 16000, x, dtype="float")
+    from eabnet_tpu_torch.cli.enhance import main
+
+    for dtype in ("bfloat16", "int8w"):
+        dst = tmp_path / f"{dtype}.wav"
+        main([str(src), str(dst), "--exp-root", EXP, "--output-stage",
+              "esti0", "--compute-dtype", dtype, "--device", "cpu"])
+        ref = load_enhancer(EXP, output="esti0", compute_dtype=dtype,
+                            device="cpu")(x)
+        np.testing.assert_allclose(read_wav(str(dst))[1], ref, atol=1e-6)
 
 
 def test_cli_directory_mode(tmp_path, enhancer):
