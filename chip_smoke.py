@@ -117,6 +117,39 @@ Phases, each announced with its elapsed seconds:
    back and resumed from (the resumed step against a run that did not
    stop).
 
+8. lowp_train: bf16 training's kernels alone at the training shapes (T =
+   601; LSTM L = 161, 1,127, 1,288, 2,576; TCM twin and single at B = 1,
+   7, 8, 16), release weights, seeded inputs and cotangents in bf16. The
+   LSTM-BF training forward's four sequences against the plain bf16
+   forward at R + 20 dB; the LSTM-BF backward on the kernel's own
+   sequences, each output (dxw1, dW_hh1, dW_ih2, dW_hh2, db2) at min(R +
+   20, D - 3). The TCM-chain backward: the trunk it recomputes, TCM by
+   TCM against the plain bf16 TCM on the kernel's trunk input, at R + 20;
+   one TCM at a time on its float32 trunk and cotangent in, as the kernel
+   carried them, its cotangent out at R + 20 and its weight gradients at
+   min(R + 20, D - 3), its dwo against the float64 sum of its own rounded
+   operands; the whole chain, every output at min(R + 20, D - 6). R from
+   the plain float32 version; D, how far float32 rounding alone moves the
+   plain bf16 version, from plain probes that take nothing from the
+   kernel: the same in float64, on the CPU, on inputs moved by float32
+   rounding (PERF.md §2); a second launch gives the same bits. Times (the
+   backwards split by launch), the plain versions', cuDNN's LSTM in bf16
+   as the LSTM's yardstick, and the bound at bf16's 989 TFLOP/s on bf16
+   bytes, with the float32 rate's beside.
+9. train_bf16: train() of composed_9mic in bf16 from 40000.params on the
+   7 val items, 5 steps: 1 + 21 + 1 + 21 kernel launches per step, all
+   of the bf16 training entries (counted by C entry), step time,
+   items/s, peak memory and one profiled step beside the float32 train
+   phase's; under cuDNN's deterministic algorithms the 5 steps' losses
+   against the JAX package's bf16 and float32 losses of the same steps
+   (tests/golden/torch_port_train_composed_9mic_bf16.npz): as one vector
+   of losses over JAX's float32, R - 6 dB against JAX bf16 and R - 3 to R
+   + 10 against JAX float32, and the float32 train phase's losses of the
+   same steps (the control) must fail that rule; the checkpoint keeps
+   float32 params and moments. Then 2 bf16 steps of eabnet_9mic_cln from
+   its 50000.params: 1 / 0 / 1 / 0 launches per step, all bf16, finite
+   losses, step time.
+
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
 The script needs a CUDA device and the repository beside it.
@@ -160,7 +193,16 @@ LOWP_MODELS = ((EXP, GOLDEN, (1, 21, 0, 0)), (EXP_CLN, GOLDEN_CLN,
 # alone; the whole chain at this or D - LOWP_SPREAD_DB, whichever is
 # lower); a model against the JAX goldens: R - these
 LOWP_KERNEL_DB, LOWP_SPREAD_DB = 20.0, 3.0
+# the bf16 TCM-chain backward's whole chain: D - this. At B = 1 a flipped
+# rounding's cascade makes the chain's SNR heavy-tailed: the plain version
+# run on the CPU, a second correct float32 implementation, lands under
+# D - 3 in 10 of 112 outputs over 16 seeds and at D - 6.07 at worst
+# (PERF.md §2)
+LOWP_CHAIN_BWD_SPREAD_DB = 6.0
 LOWP_MODEL_DB, LOWP_F32_DB = 6.0, 3.0
+# bf16 train losses: at most R + this from JAX's float32 losses (they must
+# carry bf16's noise; the same steps in float32 sit far above)
+LOWP_F32_CAP_DB = 10.0
 LOWP_GAIN_DB = 0.5  # mean SI-SDR gain within this of float32's
 LOWP_DIR = "build/chip_smoke_lowp"  # the CLI's wavs
 # tests/test_quantize.py's int8w criteria against float32
@@ -183,6 +225,17 @@ LOSS_KEYS = ("eabnet", "postnet", "final")
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_SPREAD_MARGIN = 3.0
 TRAIN_ULP_RUNS = 3
+# bf16 training: the JAX package's bf16 and float32 losses of the same 5
+# steps; the port's bf16 losses (each divided by JAX's float32 loss, as a
+# vector over steps and losses) at R - 6 dB against JAX bf16 and R - 3
+# against JAX float32, R between JAX's bf16 and float32 (PERF.md §2)
+TRAIN_BF16_GOLDEN = "tests/golden/torch_port_train_composed_9mic_bf16.npz"
+CLN_BF16_STEPS = 2  # eabnet_9mic_cln bf16 steps: launches and time
+# a bf16 weight gradient against the float64 sum of the kernel's own
+# (rounded) operands, rounded once: the float32 summation order flips a
+# bf16 rounding in ~0.1% of entries (~78 dB); one more rounding of the
+# partial sums anywhere costs about a bf16 rounding's own ~59 dB
+LOWP_SUM_DB = 68.0
 
 T0 = time.perf_counter()
 
@@ -215,6 +268,62 @@ def launch_counters():
 
     return ((double_lstm, "launches"), (tcm_chain, "launches"),
             (double_lstm, "bwd_launches"), (tcm_chain, "bwd_launches"))
+
+
+def zero_launches() -> None:
+    """Every launch counter to 0: the totals and the counts by C entry."""
+    from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
+    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
+
+    for obj, attr in launch_counters():
+        setattr(obj, attr, 0)
+    double_lstm.entry_launches, tcm_chain.entry_launches = {}, {}
+
+
+def read_launches() -> dict:
+    """The launch totals, keyed as LAUNCH_KEYS."""
+    return {k: getattr(obj, attr) for k, (obj, attr) in
+            zip(LAUNCH_KEYS, launch_counters())}
+
+
+def read_entries() -> dict:
+    """The launches by C entry, keyed by its name without ``eabnet_``
+    ({"lstm_bf_fwd_train_bf16": n, ...}); entries not launched left out."""
+    from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
+    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
+
+    out = {f"lstm_bf_{e}": n for e, n in double_lstm.entry_launches.items()
+           if n}
+    out.update({f"tcm_chain_{e}": n for e, n in
+                tcm_chain.entry_launches.items() if n})
+    return out
+
+
+def want_entries(want: dict, lowp: bool, train: bool = False) -> dict:
+    """The launches by C entry that totals ``want`` (keyed as LAUNCH_KEYS)
+    must come from: the float32 or the bf16 entries, and for the LSTM-BF
+    forward the training form (``train``) or the serving form."""
+    sfx = "_bf16" if lowp else ""
+    names = ("lstm_bf_fwd" + ("_train" if train else "") + sfx,
+             "tcm_chain_fwd" + sfx, "lstm_bf_bwd" + sfx,
+             "tcm_chain_bwd" + sfx)
+    return {n: want[k] for n, k in zip(names, LAUNCH_KEYS) if want[k]}
+
+
+# the C entries of each row of the kernels record, and the path whose
+# launches are its "launches"
+ROW_ENTRIES = {
+    "lstm_bf_fwd": (("lstm_bf_fwd", "lstm_bf_fwd_train"), "slice"),
+    "tcm_chain_fwd": (("tcm_chain_fwd",), "slice"),
+    "lstm_bf_bwd": (("lstm_bf_bwd",), "train"),
+    "tcm_chain_bwd": (("tcm_chain_bwd",), "train"),
+    "lstm_bf_fwd_bf16": (("lstm_bf_fwd_bf16",), "composed_9mic bfloat16"),
+    "tcm_chain_fwd_bf16": (("tcm_chain_fwd_bf16",),
+                           "composed_9mic bfloat16"),
+    "lstm_bf_fwd_train_bf16": (("lstm_bf_fwd_train_bf16",), "train_bf16"),
+    "lstm_bf_bwd_bf16": (("lstm_bf_bwd_bf16",), "train_bf16"),
+    "tcm_chain_bwd_bf16": (("tcm_chain_bwd_bf16",), "train_bf16"),
+}
 
 
 def require(cond: bool, what: str) -> None:
@@ -491,11 +600,7 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
         # the three launches' device time, by kernel name
         by_kernel = device_ms(lambda: K._launch_bwd(xw1, dy, *states, *w),
                               reps=5)
-        split = None if by_kernel is None else {
-            name: sum(v for k, v in by_kernel.items() if f"::{fn}(" in k)
-            for name, fn in (("walk", "lstm_bf_bwd_kernel"),
-                             ("wgrad", "lstm_bf_wgrad_kernel"),
-                             ("sum", "lstm_bf_wgrad_sum_kernel"))}
+        split = lstm_split(by_kernel)
         fwd_ms = cuda_ms(lambda: K._launch_fwd(xw1, *w, states=True), reps=5)
         library_fwd = cuda_ms(lambda: lstm(xg), reps=5)
         plain_fwd = cuda_ms(lambda: K.double_lstm_states_reference(xw1, *w),
@@ -538,6 +643,19 @@ def lstm_bwd_case(bf_map, lanes: int, t: int, seed: int):
                 library_fwd_ms=library_fwd, plain_fwd_ms=plain_fwd,
                 fwd_bound_ms=fwd_bms, fwd_geometry=fwd_geo,
                 split_ms=split, bound_ms=bms, bound_by=by, tc_bound_ms=tc_bms)
+
+
+def lstm_split(by_kernel):
+    """The LSTM-BF backward's device ms by launch from ``device_ms``: the
+    walk, the weight-gradient partials, their sum (kernel names are
+    templates: the name is followed by '<' or '(')."""
+    if by_kernel is None:
+        return None
+    return {name: sum(v for k, v in by_kernel.items()
+                      if f"::{fn}<" in k or f"::{fn}(" in k)
+            for name, fn in (("walk", "lstm_bf_bwd_kernel"),
+                             ("wgrad", "lstm_bf_wgrad_kernel"),
+                             ("sum", "lstm_bf_wgrad_sum_kernel"))}
 
 
 def tcm_bwd_case(group, b: int, t: int, seed: int):
@@ -679,10 +797,11 @@ def one_ulp_params(seed: int) -> bytes:
 
 
 def train_run(name: str, cfg_dict: dict, max_steps: int,
-              params: bytes = None):
+              params: bytes = None, start: str = None):
     """train() on the card in build/chip_smoke_train/<name>, which starts
-    with a copy of the release 40000.params (or ``params``, the bytes of
-    another such file); returns the step losses (steps, 3) and records."""
+    with a copy of the release 40000.params (or ``start``, another release
+    params file; or ``params``, the bytes of such a file); returns the step
+    losses (steps, 3) and records."""
     import shutil
 
     import numpy as np
@@ -690,12 +809,13 @@ def train_run(name: str, cfg_dict: dict, max_steps: int,
     from eabnet_tpu_torch.config import ExperimentConfig
     from eabnet_tpu_torch.train.trainer import train
 
+    start = start or os.path.join(EXP, "40000.params")
     run = os.path.join(TRAIN_DIR, name)
     if not os.path.exists(run):
         os.makedirs(os.path.join(run, "ckpt"))
-        target = os.path.join(run, "ckpt", "40000.params")
+        target = os.path.join(run, "ckpt", os.path.basename(start))
         if params is None:
-            shutil.copy(os.path.join(EXP, "40000.params"), target)
+            shutil.copy(start, target)
         else:
             with open(target, "wb") as f:
                 f.write(params)
@@ -763,16 +883,17 @@ def train_phase():
     golden = np.load(TRAIN_GOLDEN)
     cfg_dict = json.loads(str(golden["config"]))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    for obj, attr in launch_counters():
-        setattr(obj, attr, 0)
+    zero_launches()
     # launches and step time with the trainer's defaults
     hist = train_run("timed", cfg_dict, 40000 + TRAIN_STEPS)[1]
-    launches = {k: getattr(obj, attr) for k, (obj, attr) in
-                zip(LAUNCH_KEYS, launch_counters())}
-    say(f"train: launches over {TRAIN_STEPS} steps: {launches}")
-    require(launches == dict(zip(LAUNCH_KEYS, (
-        TRAIN_STEPS, 21 * TRAIN_STEPS, TRAIN_STEPS, 21 * TRAIN_STEPS))),
-            "train: 1 + 1 LSTM-BF and 21 + 21 TCM-chain launches per step")
+    launches, entries = read_launches(), read_entries()
+    say(f"train: launches over {TRAIN_STEPS} steps: {launches}, by C "
+        f"entry {entries}")
+    want = dict(zip(LAUNCH_KEYS, (TRAIN_STEPS, 21 * TRAIN_STEPS, TRAIN_STEPS,
+                                  21 * TRAIN_STEPS)))
+    require(launches == want and entries == want_entries(want, False, True),
+            "train: 1 + 1 LSTM-BF and 21 + 21 TCM-chain launches per step, "
+            "all of the float32 training kernels")
     # cuDNN's default convolution algorithms may sum in a run-dependent
     # order: the losses after step 1 and their one-ulp limits then move
     # from call to call, and one tree passed and failed in turn. The runs
@@ -780,7 +901,7 @@ def train_phase():
     # repeats its numbers.
     torch.backends.cudnn.deterministic = True
     try:
-        max_rel = compared_runs(cfg_dict, golden["losses"])
+        max_rel, losses = compared_runs(cfg_dict, golden["losses"])
     finally:
         torch.backends.cudnn.deterministic = False
 
@@ -806,14 +927,15 @@ def train_phase():
     say(f"train: peak device memory of a step "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     del state
-    return dict(launches=launches, step_s=step_s, items_s=batch / step_s,
-                max_rel=max_rel)
+    return dict(launches=launches, entries=entries, step_s=step_s,
+                items_s=batch / step_s, max_rel=max_rel, losses=losses)
 
 
-def compared_runs(cfg_dict: dict, ref) -> float:
+def compared_runs(cfg_dict: dict, ref):
     """The train phase's checks of losses against the JAX golden's ``ref``
     (steps, 3), of the checkpoint and of resuming from it; returns the
-    largest relative loss difference from JAX."""
+    largest relative loss difference from JAX and the losses (steps, 3)
+    of the run compared."""
     import numpy as np
 
     from eabnet_tpu_torch.config import ExperimentConfig
@@ -876,7 +998,7 @@ def compared_runs(cfg_dict: dict, ref) -> float:
                     for k in LOSS_KEYS),
             "train: resuming from the checkpoint gives the loss of a run "
             "that did not stop (within 1e-6 relative)")
-    return float(rel.max())
+    return float(rel.max()), got
 
 
 def kernel_category(name: str) -> str:
@@ -1023,8 +1145,7 @@ def stream_phase(enh, smi: str) -> dict:
         frames, _ = prepare_data(wavs, None, cfg.stft)  # (7, 701, F, 9, 2)
         offline = enh.model(frames[:1])
         t_all = frames.shape[1]
-        for obj, attr in launch_counters():
-            setattr(obj, attr, 0)
+        zero_launches()
         state = s.init_state(1)
         sizes = []
 
@@ -1037,12 +1158,12 @@ def stream_phase(enh, smi: str) -> dict:
 
         with torch.inference_mode():  # as cli.stream runs the step
             lat = {1: latency(step, frames[:1], t_all)}
-        launches = {k: getattr(obj, attr) for k, (obj, attr) in
-                    zip(LAUNCH_KEYS, launch_counters())}
+        launches, entries = read_launches(), read_entries()
         outs = lat[1].pop("outs")
         sizes.append(state_bytes(state))
     say(f"stream: kernel launches over {t_all} frames: {launches}")
-    require(not any(launches.values()), "stream: no kernel of the port on "
+    require(not any(launches.values()) and not entries, "stream: no kernel "
+            "of the port on "
             "the frame step (its LSTM step is two products, as the JAX "
             "stepper's runs outside Pallas)")
     err = {}
@@ -1115,16 +1236,17 @@ def stream_phase(enh, smi: str) -> dict:
             f"{per_frame[b]['kernel_ms']:.3f} ms, device idle share "
             f"{per_frame[b]['idle']:.3f}; on {smi}")
     return dict(err=err, latency=lat, launches_per_frame=per_frame,
-                state_bytes=sizes[-1], launches=launches)
+                state_bytes=sizes[-1], launches=launches, entries=entries)
 
 
 def serve_item(enh, golden_path: str, want: dict, label: str = "",
-               check=None):
+               check=None, lowp: bool = False):
     """Item 00000 alone through ``enh`` at both stages: every kernel's
-    launches in one forward (must equal ``want``, keyed as LAUNCH_KEYS),
+    launches in one forward (must equal ``want``, keyed as LAUNCH_KEYS,
+    all through the float32 entries or with ``lowp`` the bf16 ones),
     finite output, and SNR against the JAX golden (or ``check(stage,
-    out)``); returns the launches of the ``esti`` forward and the outputs
-    by stage."""
+    out)``); returns the launches of the ``esti`` forward, the same by C
+    entry, and the outputs by stage."""
     import numpy as np
     import torch
 
@@ -1137,16 +1259,17 @@ def serve_item(enh, golden_path: str, want: dict, label: str = "",
         enh.output = stage
         enh(noisy0)  # warm-up (cuDNN algorithm choice, allocator)
         torch.cuda.synchronize()
-        for obj, attr in launch_counters():
-            setattr(obj, attr, 0)
+        zero_launches()
         out = enh(noisy0)
         torch.cuda.synchronize()
-        launches = {k: getattr(obj, attr) for k, (obj, attr) in
-                    zip(LAUNCH_KEYS, launch_counters())}
-        say(f"{label}{stage}: launches in one forward {launches}")
-        require(launches == want, f"{label}{stage}: {want['lstm_bf']} "
-                f"LSTM-BF and {want['tcm_chain']} TCM-chain forward "
-                f"launches, no backward one")
+        launches, entries = read_launches(), read_entries()
+        say(f"{label}{stage}: launches in one forward {launches}, by C "
+            f"entry {entries}")
+        require(launches == want and entries == want_entries(want, lowp),
+                f"{label}{stage}: {want['lstm_bf']} LSTM-BF and "
+                f"{want['tcm_chain']} TCM-chain forward launches, all of "
+                f"the {'bf16' if lowp else 'float32'} serving kernels, no "
+                "backward one")
         require(out.shape == golden[stage].shape
                 and bool(np.isfinite(out).all()),
                 f"{label}{stage}: finite, shape {out.shape}")
@@ -1159,8 +1282,8 @@ def serve_item(enh, golden_path: str, want: dict, label: str = "",
             require(snr >= GOLDEN_MIN_SNR_DB, f"{label}{stage}: SNR vs "
                     f"golden >= {GOLDEN_MIN_SNR_DB} dB")
         if stage == "esti":
-            esti_launches = launches
-    return esti_launches, outs
+            esti_launches, esti_entries = launches, entries
+    return esti_launches, esti_entries, outs
 
 
 def serve_batch(enh, smi: str, label: str = "") -> dict:
@@ -1212,38 +1335,48 @@ def serve_batch(enh, smi: str, label: str = "") -> dict:
 
 
 # ------------------------------------------------------------------ lowp
-def lowp_rule(what: str, out, ref16, ref32, wide=None) -> dict:
+def lowp_rule(what: str, out, ref16, ref32, wide=None,
+              spread: float = LOWP_SPREAD_DB) -> dict:
     """A bf16 kernel against its plain bf16 version (ref16): its SNR, R
     (plain bf16 against plain float32, ref32) and the bound R + 20; with
-    ``wide`` (a whole TCM chain) D (plain bf16 in float32 against the same
-    in float64) and the bound min(R + 20, D - 3). Also the largest entry
-    gap (reported, not bounded), printed."""
+    ``wide`` (a whole TCM chain, a backward) D and the bound min(R + 20, D
+    - ``spread``). D: how far float32 rounding alone moves the plain version, the
+    smallest SNR between it and each of ``wide``, plain runs that take
+    nothing from the kernel (the same in float64; for a backward also the
+    same on inputs that differ by float32 rounding only, or on the CPU).
+    Also the largest entry gap (reported, not bounded), printed."""
     f = [a.float().cpu().numpy() for a in (out, ref16, ref32)]
     snr, r = snr_db(f[1], f[0]), snr_db(f[2], f[1])
-    need, d = r + LOWP_KERNEL_DB, None
+    need, d, probes = r + LOWP_KERNEL_DB, None, ""
     if wide is not None:
-        d = snr_db(wide.float().cpu().numpy(), f[1])
-        need = min(need, d - LOWP_SPREAD_DB)
+        ws = [w.float().cpu().numpy() for w in (
+            wide if isinstance(wide, (list, tuple)) else (wide,))]
+        ds = [snr_db(w, f[1]) for w in ws]
+        d = min(ds)
+        need = min(need, d - spread)
+        # printed: each probe against the plain version and the kernel
+        probes = "; probes vs plain " + ", ".join(
+            f"{v:.2f}" for v in ds) + ", vs kernel " + ", ".join(
+            f"{snr_db(w, f[0]):.2f}" for w in ws)
     gap = float(abs(f[0] - f[1]).max())
     say(f"{what}: kernel vs plain bf16 {snr:.2f} dB (R {r:.2f}, R + "
         f"{snr - r:.2f}" + ("" if d is None else f"; D {d:.2f}") +
-        f"; needs {need:.2f}), largest entry gap {gap:.3e}")
+        f"; needs {need:.2f}{probes}), largest entry gap {gap:.3e}")
     return dict(snr=snr, r=r, d=d, need=need, err=gap, ok=snr >= need)
 
 
-def tcm_each_rule(what: str, x16, w32, w16, dils, twin: bool) -> dict:
-    """Each TCM of the bf16 chain kernel alone: its float32 output on the
-    kernel's own float32 trunk input, against the plain bf16 version's on
-    the same input, must reach R + 20 dB, R from the plain float32 version
-    there. Printed: each TCM's margin over R and the largest entry gap."""
-    import torch
+def tcm_each_rule(what: str, x16, trunks, w32, w16, dils, twin: bool) -> dict:
+    """Each TCM of a bf16 chain kernel alone: ``trunks`` are the float32
+    trunk after each TCM as the kernel computed it (the forward's, from
+    ``bf16_trunks``; or the backward's recomputed ones, one fewer). TCM j's
+    on the kernel's own float32 trunk input, against the plain bf16
+    version's on the same input, must reach R + 20 dB, R from the plain
+    float32 version there. Printed: each TCM's margin over R and the
+    largest entry gap."""
+    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain_reference
 
-    from eabnet_tpu_torch.kernels.tcm_chain import (bf16_trunks,
-                                                    tcm_chain_reference)
-
-    trunks = bf16_trunks(x16, w16, dils, twin)
     trunk, snrs, rs, gap = x16.float(), [], [], 0.0
-    for j, dil in enumerate(dils):
+    for j, dil in zip(range(len(trunks)), dils):
         ref32, ref16 = (tcm_chain_reference(
             trunk, tuple(w[j:j + 1] for w in ws), (dil,), twin)
             for ws in (w32, w16))
@@ -1327,7 +1460,7 @@ def tcm_lowp_case(group, b: int, t: int, seed: int) -> dict:
     release group at (B, T)."""
     import torch
 
-    from eabnet_tpu_torch.kernels.tcm_chain import (tcm_chain,
+    from eabnet_tpu_torch.kernels.tcm_chain import (bf16_trunks, tcm_chain,
                                                     tcm_chain_reference)
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1345,8 +1478,9 @@ def tcm_lowp_case(group, b: int, t: int, seed: int) -> dict:
                      tcm_chain_reference(x, w32, dils, twin),
                      tcm_chain_reference(x16, w16, dils, twin,
                                          compute=torch.float64))
-    each = tcm_each_rule(f"tcm_chain bf16 {name} B={b} T={t}", x16, w32, w16,
-                         dils, twin)
+    each = tcm_each_rule(f"tcm_chain bf16 {name} B={b} T={t}", x16,
+                         bf16_trunks(x16, w16, dils, twin), w32, w16, dils,
+                         twin)
     rule.update(each, ok=rule["ok"] and each["each_ok"],
                 err=max(rule["err"], each["each_err"]))
     from eabnet_tpu_torch.kernels.tcm_chain import geometry
@@ -1416,8 +1550,9 @@ def lowp_serving(exp: str, golden_path: str, want, mode: str, f32_item,
         checks[key or stage] = dict(snr=to_ref, r=r, snr_f32=to_f32)
 
     enh = load_enhancer(exp, compute_dtype=mode, device="cuda")
-    launches, _ = serve_item(enh, golden_path, dict(zip(LAUNCH_KEYS, want)),
-                             label, check)
+    launches, entries, _ = serve_item(
+        enh, golden_path, dict(zip(LAUNCH_KEYS, want)), label, check,
+        lowp=True)
     # the same item through the CLI, as a user runs it
     os.makedirs(LOWP_DIR, exist_ok=True)
     wav = os.path.join(LOWP_DIR, f"{os.path.basename(exp)}_{mode}.wav")
@@ -1441,11 +1576,398 @@ def lowp_serving(exp: str, golden_path: str, want, mode: str, f32_item,
             f"{LOWP_GAIN_DB} dB of float32's")
     del enh
     torch.cuda.empty_cache()
-    return dict(launches=launches, item=checks, gain=batch["gain"],
+    return dict(launches=launches, entries=entries, item=checks,
+                gain=batch["gain"],
                 gain_f32=f32_batch["gain"], wall=batch["wall"],
                 rtf=batch["rtf"], peak_bytes=batch["peak_bytes"],
                 param_bytes=batch["param_bytes"],
                 idle=prof["idle"] if prof else None)
+
+
+# ---------------------------------------------------------- bf16 training
+def lstm_train_lowp_case(bf_map, lanes: int, t: int, seed: int) -> dict:
+    """The bf16 LSTM-BF training forward and backward kernels against their
+    plain bf16 versions at (T, L), release weights, seeded inputs: the four
+    sequences at R + 20 dB (R from the plain float32 forward); the
+    backward on the kernel's own sequences, each output at min(R + 20, D
+    - 3) (R from the plain float32 backward on the float32 sequences, D
+    from the plain bf16 backward in float64). Times beside cuDNN's LSTM in
+    bf16 (forward with grad, and backward)."""
+    import torch
+
+    from eabnet_tpu_torch.kernels import lstm_bf as K
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((t, lanes, 64), generator=g, device="cuda")
+    dy = torch.randn((t, lanes, 64), generator=g, device="cuda")
+    r1, r2 = bf_map.rnn1, bf_map.rnn2
+    xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).contiguous()
+    a32 = (xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
+    a16 = tuple(a.bfloat16().contiguous() for a in a32)
+    dy16 = dy.bfloat16()
+    before = (K.double_lstm.launches, K.double_lstm.bwd_launches)
+    states = K._launch_fwd(*a16, states=True)
+    fwd_same = all(torch.equal(a, b) for a, b in
+                   zip(states, K._launch_fwd(*a16, states=True)))
+    ref16 = K.double_lstm_states_reference(*a16)
+    ref32 = K.double_lstm_states_reference(*a32)
+    name = f"lstm_bf bf16 train T={t} L={lanes}"
+    fwd = [lowp_rule(f"{name} forward {n}", a, b, c) for n, a, b, c in zip(
+        ("h1", "c1", "h2", "c2"), states, ref16, ref32)]
+    got = K._launch_bwd(a16[0], dy16, *states, *a16[1:])
+    again = K._launch_bwd(a16[0], dy16, *states, *a16[1:])
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    p16 = K.double_lstm_bwd_reference(a16[0], dy16, *states, *a16[1:])
+    p32 = K.double_lstm_bwd_reference(xw1, dy16.float(), *ref32, *a32[1:])
+    p64 = K.double_lstm_bwd_reference(a16[0], dy16, *states, *a16[1:],
+                                      compute=torch.float64)
+    # the same on the plain forward's sequences: they differ from the
+    # kernel's by float32 rounding only (roundings to bf16 that flip)
+    pown = K.double_lstm_bwd_reference(a16[0], dy16, *ref16, *a16[1:])
+    bwd = [lowp_rule(f"{name} backward {n}", a, b, c, w)
+           for n, a, b, c, w in zip(("dxw1", "dw_hh1", "dw_ih2", "dw_hh2",
+                                     "db2"), got, p16, p32, zip(p64, pown))]
+    lstm = torch.nn.LSTM(64, 64, num_layers=2).cuda()
+    with torch.no_grad():
+        for i, r in enumerate((r1, r2)):
+            getattr(lstm, f"weight_ih_l{i}").copy_(r.w_ih.t())
+            getattr(lstm, f"weight_hh_l{i}").copy_(r.w_hh.t())
+            getattr(lstm, f"bias_ih_l{i}").copy_(r.b_ih)
+            getattr(lstm, f"bias_hh_l{i}").copy_(r.b_hh)
+    lstm.to(torch.bfloat16).flatten_parameters()
+    xg = x.bfloat16().requires_grad_()
+    with torch.enable_grad():
+        fwd_ms = cuda_ms(lambda: K._launch_fwd(*a16, states=True), reps=5)
+        ms = cuda_ms(lambda: K._launch_bwd(a16[0], dy16, *states, *a16[1:]),
+                     reps=5)
+        split = lstm_split(device_ms(
+            lambda: K._launch_bwd(a16[0], dy16, *states, *a16[1:]), reps=3))
+        plain_fwd = cuda_ms(lambda: K.double_lstm_states_reference(*a16),
+                            reps=1, warmup=1)
+        plain = cuda_ms(lambda: K.double_lstm_bwd_reference(
+            a16[0], dy16, *states, *a16[1:]), reps=1, warmup=1)
+        try:  # the yardstick only: cuDNN's LSTM in bf16, where it runs
+            lib_out = lstm(xg)[0]
+            library_fwd = cuda_ms(lambda: lstm(xg), reps=5)
+            library = cuda_ms(lambda: torch.autograd.backward(
+                lib_out, dy16, retain_graph=True), reps=5)
+        except RuntimeError as e:
+            say(f"nn.LSTM in bf16 did not run ({e}); library time not "
+                "measured")
+            library_fwd = library = None
+    K.double_lstm.launches, K.double_lstm.bwd_launches = before
+    rows = t * lanes
+    flops = 2.0 * 9 * 64 * 256 * rows
+    nbytes = 2.0 * (rows * (256 + 64 + 4 * 64 + 256)
+                    + 2 * (3 * 64 * 256 + 256))
+    bms, by, f32b = lowp_bound(flops, nbytes)
+    fwd_bms, fwd_by, fwd_f32b = lowp_bound(
+        2.0 * 3 * 64 * 256 * rows,
+        2.0 * (rows * (256 + 4 * 64) + 3 * 64 * 256 + 256))
+    say(f"{name}: training forward {fwd_ms:.4f} ms (plain {plain_fwd:.4f}, "
+        f"cuDNN LSTM bf16 forward with grad {library_fwd} ms, bound "
+        f"{fwd_bms:.4f} ms ({fwd_by}), at the float32 rate "
+        f"{fwd_f32b:.4f}); backward {ms:.4f} ms = "
+        + ("(split not measured)" if split is None else
+           f"walk {split['walk']:.4f} + GEMM {split['wgrad']:.4f} + sum "
+           f"{split['sum']:.4f}")
+        + f" (plain {plain:.4f}, cuDNN LSTM bf16 backward {library} ms, "
+        f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), at the float32 rate {f32b:.4f}); "
+        f"second launches give {'the same bits' if fwd_same and same else 'OTHER BITS'}")
+    return dict(
+        fwd=fwd, bwd=bwd, same=fwd_same and same,
+        ok=all(r["ok"] for r in fwd + bwd) and fwd_same and same,
+        err=max(r["err"] for r in fwd + bwd), fwd_err=max(
+            r["err"] for r in fwd),
+        ms=ms, plain_ms=plain, library_ms=library, bound_ms=bms,
+        bound_by=by, f32_bound_ms=f32b, split_ms=split, fwd_ms=fwd_ms,
+        plain_fwd_ms=plain_fwd, library_fwd_ms=library_fwd,
+        fwd_bound_ms=fwd_bms, fwd_bound_by=fwd_by, fwd_f32_bound_ms=fwd_f32b)
+
+
+TCM_GRADS = ("dwi", "dwl", "dwr", "dwo", "dalphas", "dgammas", "dbetas")
+
+
+def tcm_bwd_lowp_case(group, b: int, t: int, seed: int) -> dict:
+    """The bf16 TCM-chain backward kernel against its plain bf16 version
+    for one release group at (B, T). The trunk the backward recomputes:
+    after each TCM (but the last) at R + 20 dB against that TCM's plain
+    bf16 version on the kernel's trunk input (tcm_each_rule). Each TCM
+    alone, on its float32 trunk input and float32 cotangent as the kernel
+    carried them: its cotangent out at R + 20 dB, R from the same TCM with
+    float32 weights; its weight gradients at min(R + 20, D - 3), D from
+    plain probes of that TCM that take nothing from the kernel
+    (``tcm_chain_bwd_probes``); its dwo against the float64 sum of its own
+    operands. The whole chain: every output at min(R + 20, D - 6), D from
+    the same probes of the chain (LOWP_CHAIN_BWD_SPREAD_DB)."""
+    import torch
+
+    from eabnet_tpu_torch.kernels import tcm_chain as K
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x16 = torch.randn((b, t, 256), generator=g, device="cuda").bfloat16()
+    dy16 = torch.randn((b, t, 256), generator=g, device="cuda").bfloat16()
+    w32 = tuple(w.detach() for w in group.stacked_weights())
+    w16 = tuple(w.bfloat16().contiguous() for w in w32)
+    dils, twin, k = group.dilations, group.twin_gate, w32[1].shape[1]
+    name = f"tcm_chain bf16 bwd {'twin' if twin else 'single'} K={k} B={b}"
+    before = (K.tcm_chain.launches, K.tcm_chain.bwd_launches)
+    dx, dw, acts = K._launch_bwd(x16, dy16, w16, dils, twin,
+                                 activations=True)
+    again = K._launch_bwd(x16, dy16, w16, dils, twin)
+    same = torch.equal(dx, again[0]) and all(
+        torch.equal(a, c) for a, c in zip(dw, again[1]))
+    # the recomputed trunk, TCM by TCM; beside it, whether it is the
+    # forward kernel's trunk bit for bit
+    p = len(dils)
+    trunk = tcm_each_rule(f"{name} recomputed trunk", x16, list(acts["x"]),
+                          w32, w16, dils, twin)
+    fwd_trunks = K.bf16_trunks(x16, w16, dils, twin)[:p - 1]
+    say(f"{name}: the recomputed trunk is the forward kernel's bit for bit: "
+        f"{all(torch.equal(a, c) for a, c in zip(acts['x'], fwd_trunks))}")
+
+    def held(what, a, r16, r32, wide=None, spread=LOWP_SPREAD_DB):
+        if r16.float().abs().max().item() == 0:  # single: wr, table row 1
+            ok = a.float().abs().max().item() == 0
+            say(f"{what}: zero in the plain version, the kernel's zero: {ok}")
+            return dict(ok=ok, err=0.0, snr=float("inf"), need=0.0, r=0.0,
+                        d=None)
+        return lowp_rule(what, a, r16, r32, wide, spread)
+
+    # each TCM alone: trunk in, cotangent in and out as the kernel had them
+    trunks = [x16.float()] + list(acts["x"])
+    cots = list(acts["dy"]) + [dy16.float()]
+    outs = [dx] + list(acts["dy"])  # TCM 0's: dx, rounded to bf16
+    each, margins, wmargins = [], [], []
+    for j in range(p):
+        wj = [tuple(w[j:j + 1] for w in ws) for ws in (w32, w16)]
+        args = (trunks[j], cots[j])
+        p16 = K.tcm_chain_bwd_reference(*args, wj[1], dils[j:j + 1], twin)
+        p32 = K.tcm_chain_bwd_reference(*args, wj[0], dils[j:j + 1], twin)
+        probes = K.tcm_chain_bwd_probes(*args, wj[1], dils[j:j + 1], twin,
+                                        seed=seed + 100 * j)
+        r = lowp_rule(f"{name} TCM {j} dx", outs[j],
+                      p16[0].to(outs[j].dtype), p32[0])
+        each.append(r)
+        margins.append(r["snr"] - r["r"])
+        ws = [held(f"{name} TCM {j} {n}", a, q16, q32,
+                   tuple(q[1][i] for q in probes))
+              for i, (n, a, q16, q32) in enumerate(zip(
+                  TCM_GRADS, (v[j:j + 1] for v in dw), p16[1], p32[1]))]
+        each += ws
+        wmargins.append({n: w["snr"] - w["r"] for n, w in zip(TCM_GRADS, ws)
+                         if w["d"] is not None})
+    # the weight-gradient sums: each TCM's dwo against the float64 sum of
+    # its operands as the kernel kept them (no and the cotangent at TCM
+    # j's output, rounded to bf16 as the GEMM takes them), rounded once
+    sums = []
+    for j in range(p):
+        ref = torch.einsum("btc,btd->cd", acts["no"][j].bfloat16().double(),
+                           cots[j].bfloat16().double()).bfloat16()
+        sums.append(snr_db(ref.float().cpu().numpy(),
+                           dw[3][j].float().cpu().numpy()))
+    say(f"{name}: each TCM's dwo against the float64 sum of its own "
+        f"operands rounded once: {', '.join(f'{v:.2f}' for v in sums)} dB "
+        f"(needs {LOWP_SUM_DB:g})")
+    # the whole chain
+    c16 = K.tcm_chain_bwd_reference(x16, dy16, w16, dils, twin)
+    c32 = K.tcm_chain_bwd_reference(x16.float(), dy16.float(), w32, dils,
+                                    twin)
+    probes = K.tcm_chain_bwd_probes(x16, dy16, w16, dils, twin, seed=seed)
+    chain = [held(f"{name} chain {n}", a, r16, r32, ws,
+                  LOWP_CHAIN_BWD_SPREAD_DB)
+             for n, a, r16, r32, ws in zip(
+                 ("dx",) + TCM_GRADS, (dx,) + dw, (c16[0],) + c16[1],
+                 (c32[0],) + c32[1], zip(*(((q[0],) + q[1]) for q in probes)))]
+    geo = K.geometry(b, t, k, twin, backward=True, lowp=True)
+    ms = cuda_ms(lambda: K._launch_bwd(x16, dy16, w16, dils, twin), reps=10)
+    by_kernel = device_ms(lambda: K._launch_bwd(x16, dy16, w16, dils, twin),
+                          reps=5)
+    split = None if by_kernel is None else {
+        part: sum(v for key, v in by_kernel.items() if f"::{fn}" in key)
+        for part, fn in (("walk", "tcm_chain_bwd_kernel"),
+                         ("wgrad", "tcm_chain_wgrad_kernel"),
+                         ("sum", "tcm_chain_grad_sum_kernel"))}
+    plain = cuda_ms(lambda: K.tcm_chain_bwd_reference(x16, dy16, w16, dils,
+                                                      twin),
+                    reps=3, warmup=1)
+    K.tcm_chain.launches, K.tcm_chain.bwd_launches = before
+    c, d = 64, 256
+    nb = 2 if twin else 1
+    flops = 3 * 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
+    wvals = p * (d * c + nb * k * c * c + c * d + 9 * c)
+    nbytes = 2.0 * (3 * b * t * d + 2 * wvals)
+    bms, by, f32b = lowp_bound(flops, nbytes)
+    say(f"{name}: kernel {ms:.4f} ms = " + (
+        "(split not measured)" if split is None else
+        f"walk {split['walk']:.4f} + GEMM {split['wgrad']:.4f} + sum "
+        f"{split['sum']:.4f}") + f", plain {plain:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} "
+        f"MB), at the float32 rate {f32b:.4f} ms; {geo['blocks']} blocks "
+        f"({geo['blocks_per_sm']} per SM); each TCM's dx R + "
+        f"{', '.join(f'{m:.2f}' for m in margins)} (needs R + "
+        f"{LOWP_KERNEL_DB:g}); a second launch gives "
+        f"{'the same bits' if same else 'OTHER BITS'}")
+    sum_ok = min(sums) >= LOWP_SUM_DB
+    each_ok = all(r["ok"] for r in each)
+    return dict(ok=each_ok and trunk["each_ok"] and sum_ok
+                and all(r["ok"] for r in chain) and same,
+                each_ok=each_ok, each_margins=margins,
+                each_wgrad_margins=wmargins, trunk_ok=trunk["each_ok"],
+                trunk_margins=[a - r for a, r in zip(trunk["each_snr"],
+                                                     trunk["each_r"])],
+                sums=sums, sum_ok=sum_ok, chain=chain, same=same,
+                err=max(r["err"] for r in chain), ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, f32_bound_ms=f32b, split_ms=split,
+                geometry=geo, snr={n: r["snr"] for n, r in zip(
+                    ("dx",) + TCM_GRADS, chain)},
+                need={n: r["need"] for n, r in zip(("dx",) + TCM_GRADS,
+                                                    chain)})
+
+
+def bf16_loss_rule(got, golden) -> dict:
+    """The bf16 train losses (steps, 3) against the golden's JAX bf16 and
+    float32 losses of the same steps: every loss divided by JAX's float32
+    one, as one vector; R = SNR(JAX float32, JAX bf16), and the port must
+    reach R - 6 dB against JAX bf16 and R - 3 against JAX float32, and
+    carry bf16's noise: at most R + LOWP_F32_CAP_DB from JAX float32 (a
+    float32 step sits far above that)."""
+    import numpy as np
+
+    j16, j32 = golden["losses"], golden["losses_f32"]
+    v = [np.asarray(a, np.float64) / j32 for a in (got, j16, j32)]
+    r = snr_db(v[2], v[1])
+    s16, s32 = snr_db(v[1], v[0]), snr_db(v[2], v[0])
+    ok = bool(np.isfinite(got).all()) and s16 >= r - LOWP_MODEL_DB \
+        and r - LOWP_F32_DB <= s32 <= r + LOWP_F32_CAP_DB
+    return dict(r=r, s16=s16, s32=s32, ok=ok)
+
+
+def bf16_train_rule(name: str = "bf16") -> dict:
+    """The bf16 run whose losses are compared: train() from the release
+    40000.params with the bf16 golden's config under cuDNN's deterministic
+    algorithms; -> bf16_loss_rule's numbers and the losses."""
+    import numpy as np
+    import torch
+
+    golden = np.load(TRAIN_BF16_GOLDEN)
+    cfg_dict = json.loads(str(golden["config"]))
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = train_run(name, cfg_dict, 40000 + len(golden["losses"]))[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return dict(bf16_loss_rule(got, golden), losses=got.tolist())
+
+
+def train_bf16_phase(cfg_f32: dict, f32_losses) -> dict:
+    """bf16 training on the card: release/composed_9mic in bf16 from
+    40000.params on release/val_set, 5 steps of batch 7 at T = 601: the
+    launches per step (1 + 21 + 1 + 21), step time, items/s, peak memory
+    and one profiled step; under cuDNN's deterministic algorithms the
+    losses against the JAX golden (bf16_loss_rule). Then 2 bf16 steps of
+    release/eabnet_9mic_cln (launches 1 / 0 / 1 / 0 per step, finite
+    losses, step time). ``cfg_f32``: the float32 train phase's config, for
+    the cLN run's data and optimizer settings; ``f32_losses``: that
+    phase's losses of the same 5 steps in float32, the control that the
+    bf16 loss rule must reject."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.data.datasets import OfflineMcseDataset
+    from eabnet_tpu_torch.train.checkpoint import load_checkpoint
+    from eabnet_tpu_torch.train.step import (create_train_state,
+                                             make_train_step)
+
+    golden = np.load(TRAIN_BF16_GOLDEN)
+    cfg_dict = json.loads(str(golden["config"]))
+    n = len(golden["losses"])
+    zero_launches()
+    hist = train_run("bf16_timed", cfg_dict, 40000 + n)[1]
+    launches, entries = read_launches(), read_entries()
+    say(f"train_bf16: launches over {n} steps: {launches}, by C entry "
+        f"{entries}")
+    want = dict(zip(LAUNCH_KEYS, (n, 21 * n, n, 21 * n)))
+    require(launches == want and entries == want_entries(want, True, True),
+            "train_bf16: 1 + 1 LSTM-BF and 21 + 21 TCM-chain launches per "
+            "step, all of the bf16 training kernels")
+    rule = bf16_train_rule()
+    got = np.asarray(rule.pop("losses"))
+    for i in range(n):
+        say(f"train_bf16 step {40001 + i}: losses {LOSS_KEYS} "
+            f"{got[i].tolist()} vs JAX bf16 {golden['losses'][i].tolist()} "
+            f"and float32 {golden['losses_f32'][i].tolist()}")
+    say(f"train_bf16: losses over JAX float32 as one vector: R {rule['r']:.2f} "
+        f"dB (JAX bf16 vs float32); port vs JAX bf16 {rule['s16']:.2f} dB "
+        f"(needs R - {LOWP_MODEL_DB:g} = {rule['r'] - LOWP_MODEL_DB:.2f}), "
+        f"vs JAX float32 {rule['s32']:.2f} dB (needs R - {LOWP_F32_DB:g} = "
+        f"{rule['r'] - LOWP_F32_DB:.2f} to R + {LOWP_F32_CAP_DB:g} = "
+        f"{rule['r'] + LOWP_F32_CAP_DB:.2f})")
+    require(rule["ok"], f"train_bf16: {n} finite steps whose losses meet "
+            "the bf16 loss rule against the JAX golden")
+    control = bf16_loss_rule(np.asarray(f32_losses), golden)
+    say(f"train_bf16: the float32 train phase's losses of the same steps "
+        f"(the control): vs JAX bf16 {control['s16']:.2f} dB, vs JAX "
+        f"float32 {control['s32']:.2f} dB (a bf16 step: at most R + "
+        f"{LOWP_F32_CAP_DB:g} = {rule['r'] + LOWP_F32_CAP_DB:.2f})")
+    require(not control["ok"], "train_bf16: the bf16 loss rule rejects the "
+            "same steps in float32")
+    step_s = min(h["seconds"] for h in hist[1:])
+    cfg = ExperimentConfig.from_dict(cfg_dict)
+    batch = cfg.train.batch_size
+    say(f"train_bf16: step time {step_s * 1e3:.2f} ms (min of steps 2-{n}: "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist[1:]]}; step 1 "
+        f"{hist[0]['seconds'] * 1e3:.2f} ms), {batch / step_s:.2f} items/s "
+        f"at batch {batch}, T = {TRAIN_T}")
+    ckpt = os.path.join(TRAIN_DIR, "bf16_timed", "ckpt", f"{40000 + n}.ckpt")
+    state = load_checkpoint(ckpt, create_train_state(cfg, "cuda"), cfg)[0]
+    require(all(p.dtype == torch.float32 for p in state.model.parameters())
+            and all(v.dtype == torch.float32
+                    for v in state.opt_state.mu.values()),
+            "train_bf16: the checkpoint keeps float32 params and moments")
+    ds = OfflineMcseDataset(cfg.data.speech_root, cfg.data.transfer_int16)
+    items = [ds[i] for i in range(batch)]
+    noisy = torch.from_numpy(np.stack([x for x, _ in items])).cuda()
+    clean = torch.from_numpy(np.stack([y for _, y in items])).cuda()
+    step = make_train_step(cfg)
+    step(state, noisy, clean)  # warm-up at this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_run(lambda: step(state, noisy, clean))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"train_bf16: peak device memory of a step {peak / 2 ** 30:.2f} GiB")
+    del state
+
+    # the flagship recipe's norm: eabnet_9mic_cln in bf16, 2 steps
+    with open(os.path.join(EXP_CLN, "config.json")) as f:
+        d = json.load(f)
+    d["model"]["freeze_eabnet"] = False
+    d["data"] = dict(cfg_f32["data"])
+    d["train"].update({k: cfg_f32["train"][k] for k in (
+        "lr", "grad_clip", "batch_size", "log_every", "total_epoch")})
+    d["train"]["compute_dtype"] = "bfloat16"
+    start = os.path.join(EXP_CLN, "50000.params")
+    zero_launches()
+    cln_got, cln_hist = train_run("bf16_cln", d, 50000 + CLN_BF16_STEPS,
+                                  start=start)
+    cln_launches, cln_entries = read_launches(), read_entries()
+    m = CLN_BF16_STEPS
+    say(f"train_bf16 cln: losses {cln_got.tolist()}, launches over {m} "
+        f"steps {cln_launches}, by C entry {cln_entries}, step times "
+        f"{[round(h['seconds'] * 1e3, 2) for h in cln_hist]} ms")
+    want = dict(zip(LAUNCH_KEYS, (m, 0, m, 0)))
+    require(cln_launches == want
+            and cln_entries == want_entries(want, True, True)
+            and bool(np.isfinite(cln_got).all()),
+            "train_bf16 cln: 1 / 0 / 1 / 0 launches per step, all of the "
+            "bf16 training kernels, finite losses")
+    return dict(launches=launches, entries=entries, step_s=step_s,
+                items_s=batch / step_s, rule=rule, control=control,
+                peak_bytes=peak, profile=prof, cln_launches=cln_launches,
+                cln_entries=cln_entries,
+                cln_step_s=min(h["seconds"] for h in cln_hist[1:]))
 
 
 def main() -> int:
@@ -1541,8 +2063,8 @@ def main() -> int:
                      torch.backends.cuda.matmul.allow_tf32)
     with Phase("slice"):
         enh = load_enhancer(EXP, device="cuda")
-        main_launches, main_out = serve_item(enh, GOLDEN, dict(zip(
-            LAUNCH_KEYS, (1, 21, 0, 0))))
+        _, main_entries, main_out = serve_item(
+            enh, GOLDEN, dict(zip(LAUNCH_KEYS, (1, 21, 0, 0))))
         served = serve_batch(enh, smi)
         require((torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32) == default_flags,
@@ -1559,8 +2081,8 @@ def main() -> int:
         # the per-TCM route (the TCM-chain kernel is causal IN only)
         t_phase = time.perf_counter()
         enh = load_enhancer(EXP_CLN, device="cuda")
-        cln_launches, cln_out = serve_item(enh, GOLDEN_CLN, dict(zip(
-            LAUNCH_KEYS, (1, 0, 0, 0))), "cln ")
+        _, cln_entries, cln_out = serve_item(
+            enh, GOLDEN_CLN, dict(zip(LAUNCH_KEYS, (1, 0, 0, 0))), "cln ")
         cln = serve_batch(enh, smi, "cln ")
         say(f"cln: mean SI-SDR gain {cln['gain']:+.3f} dB over the "
             f"{len(cln['noisy'])} val items, composed_9mic "
@@ -1652,6 +2174,47 @@ def main() -> int:
         # part 2: the trainer on the card, the slice's main path
         trained = train_phase()
 
+    with Phase("lowp_train"):
+        # bf16 training's kernels alone at the training shapes: the LSTM-BF
+        # training forward and backward, the TCM-chain backward
+        cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
+        model = load_jax_params(build_model(cfg.model),
+                                load_params(latest_checkpoint(EXP))).cuda()
+        t = TRAIN_T
+        bf_map, twin_group = model.eabnet.bf_map, model.eabnet.stcn_0
+        single_group = model.postnet.gag_0.glance.tcn_0
+        lbw = {
+            "lstm_7": lstm_train_lowp_case(bf_map, 7 * 161, t, 41),
+            "lstm_1": lstm_train_lowp_case(bf_map, 161, t, 42),
+            "lstm_8": lstm_train_lowp_case(bf_map, 8 * 161, t, 43),
+            "lstm_16": lstm_train_lowp_case(bf_map, 16 * 161, t, 44),
+        }
+        for key, group, b, seed in (
+                ("twin_7", twin_group, 7, 45), ("twin_1", twin_group, 1, 46),
+                ("twin_8", twin_group, 8, 47), ("twin_16", twin_group, 16, 48),
+                ("single_7", single_group, 7, 49),
+                ("single_1", single_group, 1, 50),
+                ("single_8", single_group, 8, 51),
+                ("single_16", single_group, 16, 52)):
+            lbw[key] = tcm_bwd_lowp_case(group, b, t, seed)
+        del model
+        bad = [k for k, v in lbw.items() if not v["ok"]]
+        require(not bad, "every bf16 training kernel against its plain bf16 "
+                f"version: the LSTM-BF forward's sequences, the TCM-chain "
+                f"backward's recomputed trunk and each TCM's cotangent at R "
+                f"+ {LOWP_KERNEL_DB:g} dB, every other backward output (each "
+                f"TCM's weight gradients; the whole chain's at D - "
+                f"{LOWP_CHAIN_BWD_SPREAD_DB:g}) at min(R + "
+                f"{LOWP_KERNEL_DB:g}, D - {LOWP_SPREAD_DB:g}) with D from "
+                f"plain probes alone, each TCM's dwo summed once "
+                f"({LOWP_SUM_DB:g} dB), the same bits on a second launch "
+                f"(outside: {bad})")
+
+    with Phase("train_bf16"):
+        trained16 = train_bf16_phase(
+            json.loads(str(np.load(TRAIN_GOLDEN)["config"])),
+            trained["losses"])
+
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
@@ -1684,7 +2247,6 @@ def main() -> int:
         {"name": "lstm_bf_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:57",
-         "launches": main_launches["lstm_bf"],
          "max_abs_err": max([res[k]["err"] for k in lstm_keys]
                             + [bwd[k]["fwd_err"] for k in lstm_keys]),
          "ms": res["lstm_1"]["ms"], "plain_ms": res["lstm_1"]["plain_ms"],
@@ -1695,7 +2257,6 @@ def main() -> int:
         {"name": "tcm_chain_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:175",
-         "launches": main_launches["tcm_chain"],
          "max_abs_err": max(res[k]["err"] for k in tcm_keys),
          "ms": tcm["ms"], "plain_ms": tcm["plain_ms"],
          "bound_ms": tcm["bound_ms"],
@@ -1705,7 +2266,6 @@ def main() -> int:
         {"name": "lstm_bf_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:107",
-         "launches": trained["launches"]["lstm_bf_bwd"],
          "max_abs_err": max(bwd[k]["err"] for k in
                             ("lstm_1", "lstm_7", "lstm_8", "lstm_16")),
          "ms": bwd["lstm_7"]["ms"], "plain_ms": bwd["lstm_7"]["plain_ms"],
@@ -1717,7 +2277,6 @@ def main() -> int:
         {"name": "tcm_chain_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:187",
-         "launches": trained["launches"]["tcm_chain_bwd"],
          "max_abs_err": max(bwd[k]["err"] for k in tcm_keys),
          "ms": tcm_step["ms"], "plain_ms": tcm_step["plain_ms"],
          "bound_ms": tcm_step["bound_ms"],
@@ -1736,8 +2295,8 @@ def main() -> int:
     low_tcm = ("twin_1", "twin_7", "single_1", "single_7")
     low_fwd = {k: 3 * low["twin_1"][k] + 18 * low["single_1"][k]
                for k in ("ms", "plain_ms", "bound_ms", "f32_bound_ms")}
-    for name, key, keys, row in (
-            ("lstm_bf_fwd_bf16", "lstm_bf", low_lstm, dict(
+    for name, keys, row in (
+            ("lstm_bf_fwd_bf16", low_lstm, dict(
                 replaces="eabnet_tpu/kernels/lstm_bf.py:57",
                 source="eabnet_tpu_torch/csrc/lstm_bf.cu",
                 ms=low["lstm_1"]["ms"], plain_ms=low["lstm_1"]["plain_ms"],
@@ -1745,7 +2304,7 @@ def main() -> int:
                 bound_by=low["lstm_1"]["bound_by"],
                 library_ms=low["lstm_1"]["library_ms"],
                 f32_bound_ms=low["lstm_1"]["f32_bound_ms"])),
-            ("tcm_chain_fwd_bf16", "tcm_chain", low_tcm, dict(
+            ("tcm_chain_fwd_bf16", low_tcm, dict(
                 replaces="eabnet_tpu/kernels/tcm_chain.py:175",
                 source="eabnet_tpu_torch/csrc/tcm_chain.cu",
                 ms=low_fwd["ms"], plain_ms=low_fwd["plain_ms"],
@@ -1754,36 +2313,106 @@ def main() -> int:
                 f32_bound_ms=low_fwd["f32_bound_ms"]))):
         record["kernels"].append(dict(
             name=name, route="cuda",
-            launches=lowp["composed_9mic bfloat16"]["launches"][key],
             max_abs_err=max(low[k]["err"] for k in keys), **row,
             snr_db={k: low[k]["snr"] for k in keys},
             need_db={k: low[k]["need"] for k in keys},
             shapes={k: {f: low[k][f] for f in (
                 "ms", "plain_ms", "bound_ms", "f32_bound_ms", "library_ms",
-                "geometry") if f in low[k]} for k in keys},
-            launches_by_path={p: v["launches"][key]
-                              for p, v in lowp.items()}))
+                "geometry") if f in low[k]} for k in keys}))
+    # bf16 training: per train step of 7 items (T = 601), L = 1,127 and
+    # 3 EaBNet + 18 GaGNet TCM groups at B = 7, as the f32 backward rows
+    lt = ("lstm_1", "lstm_7", "lstm_8", "lstm_16")
+    tt = [k for k in lbw if k.startswith(("twin", "single"))]
+    step16 = {k: 3 * lbw["twin_7"][k] + 18 * lbw["single_7"][k]
+              for k in ("ms", "plain_ms", "bound_ms", "f32_bound_ms")}
+    lstm_names = ("h1", "c1", "h2", "c2")
+    grad_names = ("dxw1", "dw_hh1", "dw_ih2", "dw_hh2", "db2")
+    record["kernels"] += [
+        dict(name="lstm_bf_fwd_train_bf16", route="cuda",
+             source="eabnet_tpu_torch/csrc/lstm_bf.cu",
+             replaces="eabnet_tpu/kernels/lstm_bf.py:57",
+             max_abs_err=max(lbw[k]["fwd_err"] for k in lt),
+             ms=lbw["lstm_7"]["fwd_ms"], plain_ms=lbw["lstm_7"]["plain_fwd_ms"],
+             bound_ms=lbw["lstm_7"]["fwd_bound_ms"],
+             bound_by=lbw["lstm_7"]["fwd_bound_by"],
+             f32_bound_ms=lbw["lstm_7"]["fwd_f32_bound_ms"],
+             library_ms=lbw["lstm_7"]["library_fwd_ms"],
+             snr_db={k: dict(zip(lstm_names, (r["snr"] for r in lbw[k]["fwd"])))
+                     for k in lt},
+             need_db={k: dict(zip(lstm_names, (r["need"] for r in lbw[k]["fwd"])))
+                      for k in lt},
+             shapes={k: {f: lbw[k][f] for f in (
+                 "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_f32_bound_ms",
+                 "library_fwd_ms")} for k in lt}),
+        dict(name="lstm_bf_bwd_bf16", route="cuda",
+             source="eabnet_tpu_torch/csrc/lstm_bf.cu",
+             replaces="eabnet_tpu/kernels/lstm_bf.py:107",
+             max_abs_err=max(max(r["err"] for r in lbw[k]["bwd"]) for k in lt),
+             ms=lbw["lstm_7"]["ms"], plain_ms=lbw["lstm_7"]["plain_ms"],
+             bound_ms=lbw["lstm_7"]["bound_ms"],
+             bound_by=lbw["lstm_7"]["bound_by"],
+             f32_bound_ms=lbw["lstm_7"]["f32_bound_ms"],
+             library_ms=lbw["lstm_7"]["library_ms"],
+             split_ms=lbw["lstm_7"]["split_ms"],
+             snr_db={k: dict(zip(grad_names, (r["snr"] for r in lbw[k]["bwd"])))
+                     for k in lt},
+             need_db={k: dict(zip(grad_names, (r["need"] for r in lbw[k]["bwd"])))
+                      for k in lt},
+             shapes={k: {f: lbw[k][f] for f in (
+                 "ms", "plain_ms", "bound_ms", "f32_bound_ms", "library_ms",
+                 "split_ms")} for k in lt}),
+        dict(name="tcm_chain_bwd_bf16", route="cuda",
+             source="eabnet_tpu_torch/csrc/tcm_chain.cu",
+             replaces="eabnet_tpu/kernels/tcm_chain.py:187",
+             max_abs_err=max(lbw[k]["err"] for k in tt),
+             ms=step16["ms"], plain_ms=step16["plain_ms"],
+             bound_ms=step16["bound_ms"],
+             bound_by=lbw["twin_7"]["bound_by"],
+             f32_bound_ms=step16["f32_bound_ms"], library_ms=None,
+             split_ms={part: 3 * lbw["twin_7"]["split_ms"][part]
+                       + 18 * lbw["single_7"]["split_ms"][part]
+                       for part in ("walk", "wgrad", "sum")}
+             if lbw["twin_7"]["split_ms"] and lbw["single_7"]["split_ms"]
+             else None,
+             snr_db={k: dict(lbw[k]["snr"], each_dx_margin=lbw[k][
+                 "each_margins"], each_wgrad_margin=lbw[k][
+                 "each_wgrad_margins"], trunk_margin=lbw[k][
+                 "trunk_margins"]) for k in tt},
+             need_db={k: lbw[k]["need"] for k in tt},
+             shapes={k: {f: lbw[k][f] for f in (
+                 "ms", "plain_ms", "bound_ms", "f32_bound_ms", "split_ms",
+                 "geometry")} for k in tt}),
+    ]
+    record["train_bf16"] = {f: trained16[f] for f in (
+        "step_s", "items_s", "rule", "peak_bytes", "cln_step_s")}
+    record["train_bf16"]["f32_step_s"] = trained["step_s"]
     record["lowp"] = {p: {f: v[f] for f in (
         "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
         "idle", "item")} for p, v in lowp.items()}
-    record["kernels"][0]["train_launches"] = trained["launches"]["lstm_bf"]
-    record["kernels"][1]["train_launches"] = \
-        trained["launches"]["tcm_chain"]
-    # each path's launches, every counter read around that path's run: one
-    # forward of composed_9mic (slice) and of eabnet_9mic_cln (cln), every
-    # frame of the cLN stream, the train steps
-    for k, key in zip(record["kernels"], LAUNCH_KEYS):
-        k["launches_by_path"] = {
-            "slice": main_launches[key], "cln": cln_launches[key],
-            "stream": streamed["launches"][key],
-            "train": trained["launches"][key]}
+    # each path's launches by C entry, every counter zeroed just before
+    # that path's run and read just after it: one forward of composed_9mic
+    # (slice) and of eabnet_9mic_cln (cln), every frame of the cLN stream,
+    # the float32 train steps, one forward of each model in each
+    # low-precision mode, the bf16 train steps of both models
+    paths = {"slice": main_entries, "cln": cln_entries,
+             "stream": streamed["entries"], "train": trained["entries"],
+             **{p: v["entries"] for p, v in lowp.items()},
+             "train_bf16": trained16["entries"],
+             "train_bf16_cln": trained16["cln_entries"]}
+    for k in record["kernels"]:
+        entries, main_path = ROW_ENTRIES[k["name"]]
+        k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)
+                                 for p, e in paths.items()}
+        k["launches"] = k["launches_by_path"][main_path]
+        require(k["launches"] > 0, f"{k['name']}: launched on its path "
+                f"({main_path})")
     say("kernel times above are per forward of one 6-s item (B=1, T=701): "
         "lstm_bf one launch at L=161, tcm_chain 3 EaBNet + 18 GaGNet "
         "group launches; the backward ones per train step of 7 items (T="
         f"{TRAIN_T}): lstm_bf one launch at L=1,127, tcm_chain 3 + 18 group "
-        f"launches at B=7; launches of the forward kernels are those of one "
-        f"enhancement forward (train_launches: of the {TRAIN_STEPS} train "
-        "steps), of the backward ones those of the train steps")
+        f"launches at B=7; launches: one enhancement forward for the "
+        f"serving rows, the {TRAIN_STEPS} train steps for the training "
+        "rows (launches_by_path: every path, by C entry)")
     say(f"total {time.perf_counter() - T0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
     print(smi)

@@ -7,8 +7,8 @@ Runs ``train.trainer.train`` on one device (the card by default; ``cpu``
 runs every kernel's plain version). ``--set key=value`` overrides one
 dotted config key, as the JAX package's CLIs do: the value is read as
 JSON where it parses, else kept as a string. A released config records
-``train.compute_dtype: "bfloat16"``, which this slice refuses; ``--set
-train.compute_dtype=float32`` trains it in float32."""
+``train.compute_dtype: "bfloat16"`` and trains in bf16 mixed precision as
+recorded; ``--set train.compute_dtype=float32`` trains it in float32."""
 
 from __future__ import annotations
 

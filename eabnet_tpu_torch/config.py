@@ -264,12 +264,13 @@ def require_slice(cfg) -> None:
 
 def require_training(cfg: ExperimentConfig) -> None:
     """Refuse a training configuration this slice of the port does not
-    run (beside ``require_slice``, which the models apply): bf16 compute,
-    on-device synthesis, and meshes beyond one device's data axis."""
-    if cfg.train.compute_dtype != "float32":
+    run (beside ``require_slice``, which the models apply): a compute
+    dtype other than float32 and bfloat16, on-device synthesis, and meshes
+    beyond one device's data axis."""
+    if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
-            "float32 only; bf16 mixed precision is a later slice")
+            "float32 or bfloat16 mixed precision")
     if cfg.data.device_mix:
         raise NotImplementedError(
             f"device_mix={cfg.data.device_mix!r}: on-device synthesis is a "

@@ -61,7 +61,10 @@
 // to bf16); c and the gates stay float32. xw1 arrives by 16-byte cp.async,
 // a lane's 256 gates in their own order, and the cell reads its four. Its
 // work and time per step are the float32 kernel's: only the stream halves.
-// The training variant stays float32.
+// bfloat16 training (eabnet_lstm_bf_fwd_train_bf16) also writes h1, c1 and
+// c2 in bf16, as the Pallas kernel writes its four sequences in the
+// primal dtype: the carried state stays float32, and the backward reads
+// the rounded h and c.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,15 +136,17 @@ __device__ __forceinline__ float operand(float h, const bf16*) {
   return __bfloat162float(__float2bfloat16_rn(h));
 }
 
-// TIn is float (the float32 kernel) or bf16 (serving with bf16 operands)
-template <bool RES, typename TIn>
+// TIn is float (the float32 kernel) or bf16 (bf16 operands); TC the type
+// of the saved cell states (the training variant's c1, c2), TIn's in the
+// package
+template <bool RES, typename TIn, typename TC>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 lstm_bf_fwd_kernel(const TIn* __restrict__ xw1,
                    const TIn* __restrict__ w_hh1,
                    const TIn* __restrict__ w2,
                    const TIn* __restrict__ b2,
-                   float* __restrict__ h1_out, float* __restrict__ c1_out,
-                   TIn* __restrict__ h2_out, float* __restrict__ c2_out,
+                   TIn* __restrict__ h1_out, TC* __restrict__ c1_out,
+                   TIn* __restrict__ h2_out, TC* __restrict__ c2_out,
                    int T, int L, int LB) {
   constexpr bool LOWP = sizeof(TIn) == 2;
   const int LP = (LB + 1) & ~1;  // lanes in pairs; a lane past LB is idle
@@ -281,11 +286,11 @@ lstm_bf_fwd_kernel(const TIn* __restrict__ xw1,
           if (own_layer) {
             const size_t o = (static_cast<size_t>(s - 1) * L + lane) * H + u;
             store(h2_out + o, h);
-            if (RES) c2_out[o] = c;
+            if (RES) store(c2_out + o, c);
           } else if (RES) {
             const size_t o = (static_cast<size_t>(s) * L + lane) * H + u;
-            h1_out[o] = h;
-            c1_out[o] = c;
+            store(h1_out + o, h);
+            store(c1_out + o, c);
           }
         }
       }
@@ -313,6 +318,17 @@ lstm_bf_fwd_kernel(const TIn* __restrict__ xw1,
 // and dgates2, a tensor-core GEMM that sums the weight gradients over the
 // T*L rows into per-chunk partials, and a sum of those partials in chunk
 // order (no atomics, so a launch repeats its bits).
+//
+// bfloat16 training (eabnet_lstm_bf_bwd_bf16) is the same design on the
+// Pallas backward's bf16 operands: xw1, dy, the saved h and c, the
+// weights and b2 arrive in bf16 (the weights staged as float32 values),
+// every product is one bf16 mma.sync m16n8k8 per k-step (the h tiles
+// staged in bf16 and read as bf16 pairs; dgates rounded to bf16 where the
+// fragment is built, so the walk keeps its float32 dgates tiles and
+// dgates2 workspace, which db2 sums unrounded), d xw1 leaves rounded to
+// bf16, and the weight gradients are summed in float32 and rounded once,
+// in the sum kernel. The carried (dh, dc), the gates and the cell math
+// stay float32.
 //
 // What bounds it on this card. Per lane-step there are nine 64 x 256
 // products: three recompute the gates (gates2 = [h1[t] | h2[t-1]] @
@@ -378,13 +394,68 @@ __device__ __forceinline__ int wsw(int u, int j) {
   return u * G + (j ^ (((u ^ (u >> 2)) & 3) << 3));
 }
 
+// the weights (float32), the h tiles (TIn) and the dgates tiles (float32)
+template <typename TIn>
 size_t bwd_smem_bytes(int lb) {
-  return sizeof(float) * (3 * H * G + lb * (2 * SH + 2 * SD));
+  return sizeof(float) * (3 * H * G + 2 * lb * SD) +
+         sizeof(TIn) * 2 * lb * SH;
 }
 
 __device__ __forceinline__ float2 ld2(const float* p, bool ok) {
   return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
 }
+
+__device__ __forceinline__ float2 ld2(const bf16* p, bool ok) {
+  return ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p))
+            : make_float2(0.f, 0.f);
+}
+
+// four consecutive values as float32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+__device__ __forceinline__ void st2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
+// an A row pair (k, k + 1) of a bf16 product: a bf16 tile's own word, or
+// two float32 values rounded to bf16; zero for a row past the block
+__device__ __forceinline__ uint32_t a_word(const bf16* p, bool ok) {
+  return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
+
+__device__ __forceinline__ uint32_t a_word(const float* p, bool ok) {
+  const float2 v = ld2(p, ok);
+  return pack_bf16(v.x, v.y);
+}
+
+// The walk's A fragment of a dgates tile (float32 in shared memory) for
+// the bf16 transposed products: dgates rounded to bf16 where the fragment
+// is built (the Pallas kernel's dg = dgates.astype(wdt)), then one bf16
+// product per B fragment.
+struct DgFrag {
+  uint32_t a[2];
+  __device__ __forceinline__ void load(const float* p, bool r0, bool r1) {
+    a[0] = a_word(p, r0);
+    a[1] = a_word(p + 8 * SD, r1);
+  }
+  __device__ __forceinline__ void mma(float* acc, uint32_t b) const {
+    mma_bf16(acc, a, b);
+  }
+};
 
 // One LSTM cell backward: gates (i, f, g, o pre-activations) in, the
 // gates' cotangents out (in place); returns dc_prev.
@@ -407,22 +478,26 @@ struct StepIn {
   float2 x[4][2], dy[2], c1p[2], c2p[2];
 };
 
+// TIn: float (the float32 walk, 3xTF32 products) or bf16 (bf16 training,
+// one bf16 product per k-step); TC: the saved cell states' type
+template <typename TIn, typename TC>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
-lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
-                   const float* __restrict__ h1s, const float* __restrict__ c1s,
-                   const float* __restrict__ h2s, const float* __restrict__ c2s,
-                   const float* __restrict__ w_hh1,
-                   const float* __restrict__ w_ih2,
-                   const float* __restrict__ w_hh2,
-                   const float* __restrict__ b2,
-                   float* __restrict__ dxw1, float* __restrict__ dg2_out,
+lstm_bf_bwd_kernel(const TIn* __restrict__ xw1, const TIn* __restrict__ dy,
+                   const TIn* __restrict__ h1s, const TC* __restrict__ c1s,
+                   const TIn* __restrict__ h2s, const TC* __restrict__ c2s,
+                   const TIn* __restrict__ w_hh1,
+                   const TIn* __restrict__ w_ih2,
+                   const TIn* __restrict__ w_hh2,
+                   const TIn* __restrict__ b2,
+                   TIn* __restrict__ dxw1, float* __restrict__ dg2_out,
                    int T, int L, int LB) {
+  constexpr bool LOWP = sizeof(TIn) == 2;
   extern __shared__ float4 smem4[];
   float* s_w1 = reinterpret_cast<float*>(smem4);  // W_hh1, swizzled
   float* s_wi2 = s_w1 + H * G;                    // W_ih2, swizzled
   float* s_wh2 = s_wi2 + H * G;                   // W_hh2, swizzled
-  float* s_h = s_wh2 + H * G;                     // [2][LB][SH]
-  float* s_dg2 = s_h + 2 * LB * SH;               // [LB][SD]
+  TIn* s_h = reinterpret_cast<TIn*>(s_wh2 + H * G);  // [2][LB][SH]
+  float* s_dg2 = reinterpret_cast<float*>(s_h + 2 * LB * SH);  // [LB][SD]
   float* s_dg1 = s_dg2 + LB * SD;                 // [LB][SD]
 
   const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
@@ -458,7 +533,7 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
   // A fragment of a 16-row tile in shared memory (rows past LB are zero):
   // p points at row g, k = 8 kk + 2 tq, the mma's k slots tq and tq + 4
   // permuted alike in A and B so that both are one float2
-  auto load_a = [&](const float* p, int stride, uint32_t* ah, uint32_t* al) {
+  auto load_a = [&](const TIn* p, int stride, uint32_t* ah, uint32_t* al) {
     const float2 lo = ld2(p, rin[0]), hi = ld2(p + 8 * stride, rin[1]);
     split_tf32(lo.x, ah[0], al[0]);
     split_tf32(lo.y, ah[2], al[2]);
@@ -466,24 +541,24 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
     split_tf32(hi.y, ah[3], al[3]);
   };
 
+  // the weights as float32 (a bf16 weight is its float32 value)
   for (int i = tid; i < H * G / 4; i += BWD_THREADS) {
     const int u = i / (G / 4), j = (i % (G / 4)) * 4;
     const int p = wsw(u, j);  // the swizzle moves groups of 8: float4 stays
-    *reinterpret_cast<float4*>(s_w1 + p) =
-        reinterpret_cast<const float4*>(w_hh1)[i];
-    *reinterpret_cast<float4*>(s_wi2 + p) =
-        reinterpret_cast<const float4*>(w_ih2)[i];
-    *reinterpret_cast<float4*>(s_wh2 + p) =
-        reinterpret_cast<const float4*>(w_hh2)[i];
+    *reinterpret_cast<float4*>(s_w1 + p) = ld4(w_hh1 + 4 * i);
+    *reinterpret_cast<float4*>(s_wi2 + p) = ld4(w_ih2 + 4 * i);
+    *reinterpret_cast<float4*>(s_wh2 + p) = ld4(w_hh2 + 4 * i);
   }
 
-  // h tile of step s: h1[s] | h2[s-1] | h1[s-1], zero outside [0, T) x L
-  auto load_h = [&](int s, float* dst) {
-    for (int i = tid; i < LB * (3 * H / 4); i += BWD_THREADS) {
-      const int r = i / (3 * H / 4), c = (i % (3 * H / 4)) * 4;
+  // h tile of step s: h1[s] | h2[s-1] | h1[s-1], zero outside [0, T) x L;
+  // E values per 16-byte copy
+  constexpr int E = 16 / sizeof(TIn);
+  auto load_h = [&](int s, TIn* dst) {
+    for (int i = tid; i < LB * (3 * H / E); i += BWD_THREADS) {
+      const int r = i / (3 * H / E), c = (i % (3 * H / E)) * E;
       const int part = c / H, ts = part == 0 ? s : s - 1;
       const bool ok = lane0 + r < L && ts >= 0;
-      const float* src = (part == 1 ? h2s : h1s) +
+      const TIn* src = (part == 1 ? h2s : h1s) +
           (ok ? (static_cast<size_t>(ts) * L + lane0 + r) * H + c % H : 0);
       cp_async16(dst + r * SH + c, src, ok);
     }
@@ -507,24 +582,33 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
   float bq[4][2];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    bq[q][0] = b2[q * H + u0];
-    bq[q][1] = b2[q * H + u0 + 1];
+    bq[q][0] = to_f32(b2[q * H + u0]);
+    bq[q][1] = to_f32(b2[q * H + u0 + 1]);
   }
   // gates2 = [h1[s] | h2[s-1]] @ [W_ih2; W_hh2] + b2 (K = 128) and gates1 =
   // xw1[s] + h1[s-1] @ W_hh1 (K = 64) of step s from its h tile sh; tile q
   // = gate q, columns 64 q + 8 w .. + 7
-  auto gates = [&](const float* sh, const StepIn& in, float (*a2)[4],
+  auto gates = [&](const TIn* sh, const StepIn& in, float (*a2)[4],
                    float (*a1)[4]) {
     auto kstep = [&](int kk, const float* wm, float (*acc)[4]) {
-      uint32_t ah[4], al[4];
-      load_a(sh + a_off + 8 * kk, SH, ah, al);
       const float* wk = wm + (kk & 7) * 8 * G;
+      if constexpr (LOWP) {  // bf16 h and weights: one bf16 product
+        const uint32_t a[2] = {a_word(sh + a_off + 8 * kk, rin[0]),
+                               a_word(sh + a_off + 8 * kk + 8 * SH, rin[1])};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t bh[2], bl[2];
-        split_tf32(wk[gb[0][kk & 1] + q * H], bh[0], bl[0]);
-        split_tf32(wk[gb[1][kk & 1] + q * H], bh[1], bl[1]);
-        mma3(acc[q], ah, al, bh, bl);
+        for (int q = 0; q < 4; ++q)
+          mma_bf16(acc[q], a, pack_bf16(wk[gb[0][kk & 1] + q * H],
+                                        wk[gb[1][kk & 1] + q * H]));
+      } else {
+        uint32_t ah[4], al[4];
+        load_a(sh + a_off + 8 * kk, SH, ah, al);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t bh[2], bl[2];
+          split_tf32(wk[gb[0][kk & 1] + q * H], bh[0], bl[0]);
+          split_tf32(wk[gb[1][kk & 1] + q * H], bh[1], bl[1]);
+          mma3(acc[q], ah, al, bh, bl);
+        }
       }
     };
     float a2h[4][4];  // the h2[s-1] half on its own: shorter chains
@@ -590,7 +674,7 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
           const float2 v = make_float2(a2[q][2 * rr], a2[q][2 * rr + 1]);
           *reinterpret_cast<float2*>(s_dg2 + (g + 8 * rr) * SD + q * H +
                                      u0) = v;
-          if (rok[rr]) *reinterpret_cast<float2*>(dg2_out + o + q * H) = v;
+          if (rok[rr]) st2(dg2_out + o + q * H, v);
         }
       }
     }
@@ -624,16 +708,24 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
 #pragma unroll
       for (int kk = 0; kk < 32; ++kk) {
         uint32_t ah[4], al[4];
-        load_a(s_dg2 + d_off + 8 * kk, SD, ah, al);
+        DgFrag dg;
+        if constexpr (LOWP)
+          dg.load(s_dg2 + d_off + 8 * kk, rin[0], rin[1]);
+        else
+          load_a(s_dg2 + d_off + 8 * kk, SD, ah, al);
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const float* wm = p ? s_wi2 : s_wh2;
           const float2 b = *reinterpret_cast<const float2*>(
               wm + tb[kk & 3] + 32 * (kk >> 2));
-          uint32_t bh[2], bl[2];
-          split_tf32(b.x, bh[0], bl[0]);
-          split_tf32(b.y, bh[1], bl[1]);
-          mma3(acc[p][kk & 3], ah, al, bh, bl);
+          if constexpr (LOWP) {
+            dg.mma(acc[p][kk & 3], pack_bf16(b.x, b.y));
+          } else {
+            uint32_t bh[2], bl[2];
+            split_tf32(b.x, bh[0], bl[0]);
+            split_tf32(b.y, bh[1], bl[1]);
+            mma3(acc[p][kk & 3], ah, al, bh, bl);
+          }
         }
       }
 #pragma unroll
@@ -664,7 +756,7 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
           const float2 v = make_float2(a1[q][2 * rr], a1[q][2 * rr + 1]);
           *reinterpret_cast<float2*>(s_dg1 + (g + 8 * rr) * SD + q * H +
                                      u0) = v;
-          if (rok[rr]) *reinterpret_cast<float2*>(dxw1 + o + q * H) = v;
+          if (rok[rr]) st2(dxw1 + o + q * H, v);
         }
       }
     }
@@ -680,14 +772,20 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
         for (int i = 0; i < 4; ++i) acc[s][i] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 32; ++kk) {
-        uint32_t ah[4], al[4];
-        load_a(s_dg1 + d_off + 8 * kk, SD, ah, al);
         const float2 b = *reinterpret_cast<const float2*>(
             s_w1 + tb[kk & 3] + 32 * (kk >> 2));
-        uint32_t bh[2], bl[2];
-        split_tf32(b.x, bh[0], bl[0]);
-        split_tf32(b.y, bh[1], bl[1]);
-        mma3(acc[kk & 7], ah, al, bh, bl);
+        if constexpr (LOWP) {
+          DgFrag dg;
+          dg.load(s_dg1 + d_off + 8 * kk, rin[0], rin[1]);
+          dg.mma(acc[kk & 7], pack_bf16(b.x, b.y));
+        } else {
+          uint32_t ah[4], al[4];
+          load_a(s_dg1 + d_off + 8 * kk, SD, ah, al);
+          uint32_t bh[2], bl[2];
+          split_tf32(b.x, bh[0], bl[0]);
+          split_tf32(b.y, bh[1], bl[1]);
+          mma3(acc[kk & 7], ah, al, bh, bl);
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -709,34 +807,51 @@ lstm_bf_bwd_kernel(const float* __restrict__ xw1, const float* __restrict__ dy,
   }
 }
 
-// Weight-gradient partials on the tensor cores. blockIdx.y is the job:
+// Weight-gradient partials on the tensor cores, one launch: blockIdx.y is
+// the job:
 //   0: dW_hh1 = sum_n h1[n-L]^T dgates1[n]          (M = 64, N = 256)
 //   1, 2: [dW_ih2; dW_hh2] = sum_n [h1[n] | h2[n-L]]^T dgates2[n], columns
 //         128 (y-1) .. + 127, and db2 over those columns  (M = 128, N = 128)
 // over the rows n = t L + lane of chunk blockIdx.x (h[n-L] is zero for
 // t = 0). Each job's block is a 16,384-entry tile: 8 warps of 32 x 64.
 // Partials go to part[chunk] in dw's layout [dW_hh1, dW_ih2, dW_hh2, db2].
+// TA: the states' type, TB: that of the job's B operand (bsrc: dgates1,
+// which is d xw1, or dgates2, float32). With bf16 states (bf16 training) each k-step is one bf16
+// product of the operands rounded to bf16 (dgates2 arrives in float32 and
+// is rounded here; db2 sums it unrounded, as the Pallas kernel does), into
+// zeroed registers and then added in float32; with float32 states, three
+// TF32 products per k-step, a stage's k-steps into zeroed registers.
 constexpr int WG_BK = 32;     // rows per stage
 constexpr int WG_STAGES = 4;  // cp.async ring depth
 // a stage holds the larger job's A and B rows: (64 + 8) + (256 + 8) floats
 constexpr int WG_STAGE_FLOATS = WG_BK * (H + 8 + G + 8);
 constexpr int DW_FLOATS = 3 * H * G + G;
 
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
-                     const float* __restrict__ h2s,
-                     const float* __restrict__ dg1,
-                     const float* __restrict__ dg2,
-                     float* __restrict__ part, int T, int L) {
+// an mma operand pair (k, k + 1) from two bf16 values, or from two float32
+// values rounded to bf16
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+
+template <typename TA, typename TB>
+__device__ __forceinline__ void wgrad_tile(const TA* __restrict__ h1s,
+                                           const TA* __restrict__ h2s,
+                                           const TB* __restrict__ bsrc,
+                                           float* __restrict__ part, int T,
+                                           int L, int job) {
+  constexpr bool LOWP = sizeof(TA) == 2;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
+  char* ring = reinterpret_cast<char*>(smem4);
   const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
             tq = tid & 3;
-  const int job = blockIdx.y;
   const int MT = job ? 2 * H : H, NT = job ? G / 2 : G;
-  const int AS = MT + 8, BS = NT + 8;  // row strides, 8 mod 32 floats
+  const int AS = MT + 8, BS = NT + 8;  // row strides (values)
   const int col0 = job ? (job - 1) * (G / 2) : 0;
-  const float* bsrc = job ? dg2 : dg1;
   const int wm = MT / 32;  // warps along M
   const int m0 = (w % wm) * 32, n0 = (w / wm) * 64;
 
@@ -746,14 +861,23 @@ lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
   const long long r1 = r0 + per < n_rows ? r0 + per : n_rows;
   const int nk = r1 > r0 ? static_cast<int>((r1 - r0 + WG_BK - 1) / WG_BK) : 0;
 
+  // stage kt's A rows (TA) and B rows (TB); EA, EB values per 16 bytes
+  constexpr int EA = 16 / sizeof(TA), EB = 16 / sizeof(TB);
+  auto stage_a = [&](int kt) {
+    return reinterpret_cast<TA*>(ring + (kt % WG_STAGES) * WG_STAGE_FLOATS *
+                                            sizeof(float));
+  };
+  auto stage_b = [&](int kt) {
+    return reinterpret_cast<TB*>(stage_a(kt) + WG_BK * AS);
+  };
   auto load = [&](int kt) {
-    float* as = ring + (kt % WG_STAGES) * WG_STAGE_FLOATS;
-    float* bs = as + WG_BK * AS;
+    TA* as = stage_a(kt);
+    TB* bs = stage_b(kt);
     const long long base = r0 + static_cast<long long>(kt) * WG_BK;
-    for (int i = tid; i < WG_BK * MT / 4; i += BWD_THREADS) {
-      const int r = i / (MT / 4), c = (i % (MT / 4)) * 4;
+    for (int i = tid; i < WG_BK * MT / EA; i += BWD_THREADS) {
+      const int r = i / (MT / EA), c = (i % (MT / EA)) * EA;
       const long long n = base + r;
-      const float* src = h1s;
+      const TA* src = h1s;
       bool ok = n < r1;
       long long row = n;
       if (job == 0 || c >= H) {
@@ -764,8 +888,8 @@ lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
       cp_async16(as + r * AS + c,
                  src + (ok ? row * H + (c & (H - 1)) : 0), ok);
     }
-    for (int i = tid; i < WG_BK * NT / 4; i += BWD_THREADS) {
-      const int r = i / (NT / 4), c = (i % (NT / 4)) * 4;
+    for (int i = tid; i < WG_BK * NT / EB; i += BWD_THREADS) {
+      const int r = i / (NT / EB), c = (i % (NT / EB)) * EB;
       const long long n = base + r;
       const bool ok = n < r1;
       cp_async16(bs + r * BS + c, bsrc + (ok ? n * G + col0 + c : 0), ok);
@@ -794,13 +918,34 @@ lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
     __syncthreads();  // stage kt is in; stage kt - 1 is free
     if (kt + WG_STAGES - 1 < nk) load(kt + WG_STAGES - 1);
     cp_async_commit();
-    const float* as = ring + (kt % WG_STAGES) * WG_STAGE_FLOATS;
-    const float* bs = as + WG_BK * AS;
+    const TA* as = stage_a(kt);
+    const TB* bs = stage_b(kt);
     if (job && tid < NT) {  // db2: each stage's rows, then the sum
       float st = 0.f;
 #pragma unroll
-      for (int r = 0; r < WG_BK; ++r) st += bs[r * BS + tid];
+      for (int r = 0; r < WG_BK; ++r) st += to_f32(bs[r * BS + tid]);
       accb += st;
+    }
+    if constexpr (LOWP) {
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 8; ++ks) {
+        // the TF32 fragments' (k = tq, tq + 4) slots as one bf16 pair
+        const TA* ak = as + (ks * 8 + tq) * AS + m0 + g;
+        const TB* bk = bs + (ks * 8 + tq) * BS + n0 + g;
+        uint32_t a2[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          a2[mt][0] = pack2(ak[mt * 16], ak[4 * AS + mt * 16]);
+          a2[mt][1] = pack2(ak[mt * 16 + 8], ak[4 * AS + mt * 16 + 8]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const uint32_t b = pack2(bk[nt * 8], bk[4 * BS + nt * 8]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16_add(sum[mt][nt], a2[mt], b);
+        }
+      }
+      continue;
     }
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -810,20 +955,21 @@ lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
         for (int i = 0; i < 4; ++i) acc[a][b][i] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < WG_BK / 8; ++ks) {
-      const float* ak = as + (ks * 8 + tq) * AS + m0 + g;
-      const float* bk = bs + (ks * 8 + tq) * BS + n0 + g;
+      const TA* ak = as + (ks * 8 + tq) * AS + m0 + g;
+      const TB* bk = bs + (ks * 8 + tq) * BS + n0 + g;
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const float av[4] = {ak[mt * 16], ak[mt * 16 + 8],
-                             ak[4 * AS + mt * 16], ak[4 * AS + mt * 16 + 8]};
+        const float av[4] = {to_f32(ak[mt * 16]), to_f32(ak[mt * 16 + 8]),
+                             to_f32(ak[4 * AS + mt * 16]),
+                             to_f32(ak[4 * AS + mt * 16 + 8])};
         split4(av, ah[mt], al[mt]);
       }
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         uint32_t bh[2], bl[2];
-        split_tf32(bk[nt * 8], bh[0], bl[0]);
-        split_tf32(bk[4 * BS + nt * 8], bh[1], bl[1]);
+        split_tf32(to_f32(bk[nt * 8]), bh[0], bl[0]);
+        split_tf32(to_f32(bk[4 * BS + nt * 8]), bh[1], bl[1]);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
           mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
@@ -853,15 +999,30 @@ lstm_bf_wgrad_kernel(const float* __restrict__ h1s,
   if (job && tid < NT) out[3 * H * G + col0 + tid] = accb;
 }
 
-// dw = the partials summed over chunks in chunk order.
+// TD1: the type of d xw1 (job 0's B operand); dgates2 is float32
+template <typename TA, typename TD1>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+lstm_bf_wgrad_kernel(const TA* __restrict__ h1s, const TA* __restrict__ h2s,
+                     const TD1* __restrict__ dg1,
+                     const float* __restrict__ dg2, float* __restrict__ part,
+                     int T, int L) {
+  if (blockIdx.y == 0)
+    wgrad_tile(h1s, h2s, dg1, part, T, L, 0);
+  else
+    wgrad_tile(h1s, h2s, dg2, part, T, L, blockIdx.y);
+}
+
+// dw = the partials summed over chunks in chunk order, in float32, then
+// written in dw's type (bf16 training: rounded once, at the end).
+template <typename TO>
 __global__ void lstm_bf_wgrad_sum_kernel(const float* __restrict__ part,
-                                         float* __restrict__ dw, int nchunk) {
+                                         TO* __restrict__ dw, int nchunk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= DW_FLOATS) return;
   float s = 0.0f;
   for (int c = 0; c < nchunk; ++c)
     s += part[static_cast<size_t>(c) * DW_FLOATS + i];
-  dw[i] = s;
+  store(dw + i, s);
 }
 
 cudaError_t sm_count(int* n_sm) {
@@ -882,20 +1043,20 @@ cudaError_t lanes_per_block(int L, int lb_max, int* lb) {
   return cudaSuccess;
 }
 
-template <bool RES, typename TIn>
+template <bool RES, typename TIn, typename TC>
 cudaError_t launch_fwd(const TIn* xw1, const TIn* w_hh1, const TIn* w2,
-                       const TIn* b2, float* h1, float* c1, TIn* h2,
-                       float* c2, int T, int L, cudaStream_t stream) {
+                       const TIn* b2, TIn* h1, TC* c1, TIn* h2, TC* c2, int T,
+                       int L, cudaStream_t stream) {
   if (T < 1 || L < 1) return cudaErrorInvalidValue;
   int lb = 0;
   cudaError_t err = lanes_per_block(L, FWD_LB_MAX, &lb);
   if (err != cudaSuccess) return err;
   const size_t smem = fwd_smem_bytes(lb);
-  err = cudaFuncSetAttribute(lstm_bf_fwd_kernel<RES, TIn>,
+  err = cudaFuncSetAttribute(lstm_bf_fwd_kernel<RES, TIn, TC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_bf_fwd_kernel<RES, TIn>
+  lstm_bf_fwd_kernel<RES, TIn, TC>
       <<<(L + lb - 1) / lb, FWD_THREADS, smem, stream>>>(
       xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L, lb);
   return cudaGetLastError();
@@ -926,7 +1087,7 @@ extern "C" int eabnet_lstm_bf_fwd(const float* xw1, const float* w_hh1,
 extern "C" int eabnet_lstm_bf_fwd_bf16(const bf16* xw1, const bf16* w_hh1,
                                        const bf16* w2, const bf16* b2,
                                        bf16* h2, int T, int L, void* stream) {
-  float* no = nullptr;
+  bf16* no = nullptr;
   return launch_fwd<false>(xw1, w_hh1, w2, b2, no, no, h2, no, T, L,
                            static_cast<cudaStream_t>(stream));
 }
@@ -937,6 +1098,22 @@ extern "C" int eabnet_lstm_bf_fwd_train(const float* xw1, const float* w_hh1,
                                         const float* w2, const float* b2,
                                         float* h1, float* c1, float* h2,
                                         float* c2, int T, int L, void* stream) {
+  return launch_fwd<true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The type of the cell states that bf16 training saves (the Pallas
+// kernel writes its sequences in the primal dtype).
+using CSave = bf16;
+
+// The training forward of bf16 training: as eabnet_lstm_bf_fwd_bf16, and
+// also writes h1 and (in CSave) c1, c2, rounded from the float32 state.
+extern "C" int eabnet_lstm_bf_fwd_train_bf16(const bf16* xw1,
+                                             const bf16* w_hh1,
+                                             const bf16* w2, const bf16* b2,
+                                             bf16* h1, CSave* c1, bf16* h2,
+                                             CSave* c2, int T, int L,
+                                             void* stream) {
   return launch_fwd<true>(xw1, w_hh1, w2, b2, h1, c1, h2, c2, T, L,
                           static_cast<cudaStream_t>(stream));
 }
@@ -958,6 +1135,48 @@ extern "C" long long eabnet_lstm_bf_bwd_workspace(int T, int L) {
          static_cast<long long>(nchunk) * DW_FLOATS;
 }
 
+namespace {
+
+// The backward's three launches on one stream.
+template <typename TIn, typename TC>
+cudaError_t launch_bwd(const TIn* xw1, const TIn* dy, const TIn* h1,
+                       const TC* c1, const TIn* h2, const TC* c2,
+                       const TIn* w_hh1, const TIn* w_ih2, const TIn* w_hh2,
+                       const TIn* b2, TIn* dxw1, TIn* dw, float* work, int T,
+                       int L, cudaStream_t s) {
+  if (T < 1 || L < 1) return cudaErrorInvalidValue;
+  int lb = 0;
+  cudaError_t err = lanes_per_block(L, BWD_LB_MAX, &lb);
+  if (err != cudaSuccess) return err;
+  const int nchunk = wgrad_chunks();
+  if (nchunk < 1) return cudaErrorInvalidDevice;
+  float* dg2 = work;
+  float* part = work + static_cast<size_t>(T) * L * G;
+  size_t smem = bwd_smem_bytes<TIn>(lb);
+  err = cudaFuncSetAttribute(lstm_bf_bwd_kernel<TIn, TC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bf_bwd_kernel<TIn, TC><<<(L + lb - 1) / lb, BWD_THREADS, smem, s>>>(
+      xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, lb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
+  err = cudaFuncSetAttribute(lstm_bf_wgrad_kernel<TIn, TIn>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bf_wgrad_kernel<TIn, TIn><<<dim3(nchunk, 3), BWD_THREADS, smem, s>>>(
+      h1, h2, dxw1, dg2, part, T, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lstm_bf_wgrad_sum_kernel<<<(DW_FLOATS + 255) / 256, 256, 0, s>>>(
+      part, dw, nchunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // Backward: xw1 (T, L, 256), dy (T, L, 64) and the residuals h1, c1, h2, c2
 // (T, L, 64); w_hh1, w_ih2, w_hh2 (64, 256), b2 (256,) -> dxw1 (T, L, 256)
 // and dw = [dW_hh1, dW_ih2, dW_hh2 (64, 256) each, db2 (256)] contiguous.
@@ -971,36 +1190,22 @@ extern "C" int eabnet_lstm_bf_bwd(const float* xw1, const float* dy,
                                   const float* w_hh2, const float* b2,
                                   float* dxw1, float* dw, float* work, int T,
                                   int L, void* stream) {
-  if (T < 1 || L < 1) return cudaErrorInvalidValue;
-  int lb = 0;
-  cudaError_t err = lanes_per_block(L, BWD_LB_MAX, &lb);
-  if (err != cudaSuccess) return err;
-  const int nchunk = wgrad_chunks();
-  if (nchunk < 1) return cudaErrorInvalidDevice;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dg2 = work;
-  float* part = work + static_cast<size_t>(T) * L * G;
-  size_t smem = bwd_smem_bytes(lb);
-  err = cudaFuncSetAttribute(lstm_bf_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  lstm_bf_bwd_kernel<<<(L + lb - 1) / lb, BWD_THREADS, smem, s>>>(
-      xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1, dg2, T, L, lb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  smem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
-  err = cudaFuncSetAttribute(lstm_bf_wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  lstm_bf_wgrad_kernel<<<dim3(nchunk, 3), BWD_THREADS, smem, s>>>(
-      h1, h2, dxw1, dg2, part, T, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  lstm_bf_wgrad_sum_kernel<<<(DW_FLOATS + 255) / 256, 256, 0, s>>>(
-      part, dw, nchunk);
-  return cudaGetLastError();
+  return launch_bwd(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1,
+                    dw, work, T, L, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of bf16 training: as eabnet_lstm_bf_bwd with every tensor
+// in bfloat16 (the cell states in CSave) and the same float32 workspace;
+// dxw1 and dw come out rounded to bf16 (dw once, after its float32 sum).
+extern "C" int eabnet_lstm_bf_bwd_bf16(const bf16* xw1, const bf16* dy,
+                                       const bf16* h1, const CSave* c1,
+                                       const bf16* h2, const CSave* c2,
+                                       const bf16* w_hh1, const bf16* w_ih2,
+                                       const bf16* w_hh2, const bf16* b2,
+                                       bf16* dxw1, bf16* dw, float* work,
+                                       int T, int L, void* stream) {
+  return launch_bwd(xw1, dy, h1, c1, h2, c2, w_hh1, w_ih2, w_hh2, b2, dxw1,
+                    dw, work, T, L, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* eabnet_error_string(int err) {

@@ -225,6 +225,12 @@ __device__ __forceinline__ void st2(bf16* p, float u, float v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, v);
 }
 
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void st1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // The lane's place in the mma fragments: warp w, group g (rows g, g + 8),
 // quad tq (k = 2 tq, 2 tq + 1 of each k-step; C columns 2 tq, 2 tq + 1).
 struct Lane {
@@ -278,32 +284,13 @@ __device__ __forceinline__ void mma3_add(float* c, const uint32_t* ah,
   for (int i = 0; i < 4; ++i) c[i] += t[i];
 }
 
-// Two floats rounded to bf16 and packed, the first in the low half (the
-// lower k of an mma operand pair)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a b as one mma.sync m16n8k8 with bf16 operands into zeroed
-// registers, then a float32 add (as mma3_add)
-__device__ __forceinline__ void mma_bf16_add(float* c, const uint32_t* a,
-                                             uint32_t b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
-      : "+f"(t[0]), "+f"(t[1]), "+f"(t[2]), "+f"(t[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// The forward phases' products, by operand type: an A fragment of a staged
-// float32 tile (a()), then c += A B for a B fragment of the weights W
-// (row-major [k][n], rows of N) at k, k + 1 and column n (mac()). float:
-// three TF32 products; bf16: the tile rounded to bf16, one bf16 product.
-// The bf16 m16n8k8 takes the same (k0 + 2 tq, k0 + 2 tq + 1) pairs of
-// rows g, g + 8 as frag_a's permuted TF32 k slots, in their natural order.
+// The products, by operand type: an A fragment of a staged float32 tile
+// (a()), then c += A B for a B fragment of the weights W (row-major
+// [k][n], rows of N) at k, k + 1 and column n (mac()), or of W^T (W
+// row-major [n][k], rows of Kd; mac_t(), the backward's). float: three
+// TF32 products; bf16: the tile rounded to bf16, one bf16 product. The
+// bf16 m16n8k8 takes the same (k0 + 2 tq, k0 + 2 tq + 1) pairs of rows g,
+// g + 8 as frag_a's permuted TF32 k slots, in their natural order.
 template <typename W>
 struct Product;
 
@@ -318,6 +305,12 @@ struct Product<float> {
                                       int n, bool ok) const {
     uint32_t bh[2], bl[2];
     frag_b(W, N, k, n, ok, bh, bl);
+    mma3_add(c, ah, al, bh, bl);
+  }
+  __device__ __forceinline__ void mac_t(float* c, const float* W, int Kd,
+                                        int k, int n, bool ok) const {
+    uint32_t bh[2], bl[2];
+    frag_bt(W, Kd, k, n, ok, bh, bl);
     mma3_add(c, ah, al, bh, bl);
   }
 };
@@ -339,6 +332,14 @@ struct Product<bf16> {
     const uint32_t lo = ok ? __ldg(w + (size_t)k * N + n) : 0u;
     const uint32_t hi = ok ? __ldg(w + (size_t)(k + 1) * N + n) : 0u;
     mma_bf16_add(c, a2, lo | hi << 16);
+  }
+  __device__ __forceinline__ void mac_t(float* c, const bf16* W, int Kd,
+                                        int k, int n, bool ok) const {
+    // W[n][k], W[n][k + 1]: one word, the lower k in the low half
+    const uint32_t b =
+        ok ? __ldg(reinterpret_cast<const unsigned*>(W + (size_t)n * Kd + k))
+           : 0u;
+    mma_bf16_add(c, a2, b);
   }
 };
 
@@ -765,6 +766,16 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 //    launch gives the same bits. For a single-branch group only branch L
 //    and the out rows are computed, so wr and row 1 of the tables get a
 //    zero gradient, as in the Pallas backward.
+// bfloat16 training (eabnet_tcm_chain_bwd_bf16) runs the same three
+// kernels with the Pallas backward's bf16 operands: x, dy, the weights and
+// the tables arrive in bf16. The chain is recomputed on a float32 trunk
+// (phase A of TCM 0 reads x once and keeps its float32 copy as trunk slot
+// 0) and R1 of the last TCM reads dy once into a float32 copy, so the
+// cotangent is carried in float32 across the TCMs; every product operand,
+// in the walk and in the GEMM, is rounded to bf16 where its fragment is
+// built (one bf16 mma.sync per k-step, added in float32), the IN and PReLU
+// derivatives stay float32, dx is written in bf16, and every gradient is
+// summed in float32 and rounded to bf16 once, in the sum kernel.
 // What bounds it: three times the forward's products (the recompute, then
 // the data and the weight cotangents), 11.2 GFLOP for an EaBNet group at
 // B = 7, T = 601, so the f32 rate (0.17 ms) or three TF32 products on the
@@ -776,18 +787,21 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 // of ~0.13 ms at that shape. The walk is what remains (~90%), held back as
 // the forward is, by its products' weight fragments.
 
-struct BArgs {
-  Args f;              // the forward's arguments and scratch
-  const float* dy;     // (B, T, D) cotangent of the group output
-  float* dx;           // (B, T, D) cotangent of the group input
-  float* xs;           // (P-1, B, T, D) trunk input of TCMs 1 .. P-1
+template <typename W>
+struct BArgsT {
+  ArgsT<W> f;          // the forward's arguments and scratch
+  const W* dy;         // (B, T, D) cotangent of the group output
+  W* dx;               // (B, T, D) cotangent of the group input
+  float* xs;           // (P-1, B, T, D) trunk input of TCMs 1 .. P-1; bf16:
+                       // (P, B, T, D), slot 0 the float32 x
   float* hs;           // (P, B, T, C) h = x @ wi
   float* cls;          // (P, B, T, C) branch-L conv output
   float* crs;          // (P, B, T, C) branch-R conv output (twin)
   float* st;           // (P, 3, B ntile, C, 2) per-tile IN statistics
   float* ns;           // (P, 2, B, T, C) normalised branch inputs n
   float* nos;          // (P, B, T, C) normalised gate output no
-  float* dys;          // (P-1, B, T, D) cotangent at TCM j's output, j < P-1
+  float* dys;          // (P-1, B, T, D) cotangent at TCM j's output, j < P-1;
+                       // bf16: (P, B, T, D), slot P-1 the float32 dy
   float* dcs;          // (P, 2, B, T, C) d conv output per branch
   float* dhs;          // (P, B, T, C) d h
   float* dno;          // (B, T, C) d no
@@ -816,14 +830,15 @@ __device__ __forceinline__ void tile_colsum(float4 v, float* s_red,
   }
 }
 
-template <bool TWIN>
+template <bool TWIN, typename W>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    tcm_chain_bwd_kernel(BArgs g) {
+    tcm_chain_bwd_kernel(BArgsT<W> g) {
+  constexpr bool LOWP = sizeof(W) == 2;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4) + CK_FLOATS;
   cg::grid_group grid = cg::this_grid();
   ck_init();
-  const Args& a = g.f;
+  const ArgsT<W>& a = g.f;
   const Lane l;
   const int tid = threadIdx.x;
   const int D = a.D, T = a.T, K = a.K, P = a.P, D8 = (D + 7) & ~7;
@@ -846,18 +861,40 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const size_t tb = (size_t)P * 3 * G * C;  // dbeta parts after dgamma's
   const int n = 8 * l.w + l.g, col = 8 * l.w + 2 * l.tq;
 
+  // the float32 trunk input of TCM j (bf16: TCM 0's is x's copy)
+  auto trunk = [&](int j) -> float* {
+    return g.xs + (LOWP ? j : j - 1) * BTD;
+  };
+  // the float32 cotangent at TCM j's output (bf16: the last is dy's copy)
+  auto dcot = [&](int j) -> const float* {
+    if constexpr (LOWP)
+      return g.dys + j * BTD;
+    else
+      return j == P - 1 ? g.dy : g.dys + j * BTD;
+  };
+
   // ---------------------------------------------- the forward, saved
   for (int j = 0; j < P; ++j) {
-    const float* xin = j == 0 ? a.x : g.xs + (j - 1) * BTD;
     float* stj = g.st + j * STS;
-    phase_a<TWIN>(a, j, xin, sm, g.hs + j * BTC, stj);
+    const float* xin;
+    if constexpr (LOWP) {
+      if (j == 0)
+        phase_a<TWIN>(a, j, a.x, sm, g.hs + j * BTC, stj, trunk(0));
+      else
+        phase_a<TWIN>(a, j, static_cast<const float*>(trunk(j)), sm,
+                      g.hs + j * BTC, stj);
+      xin = trunk(j);
+    } else {
+      xin = j == 0 ? a.x : trunk(j);
+      phase_a<TWIN>(a, j, xin, sm, g.hs + j * BTC, stj);
+    }
     grid.sync();
     CK(PH_A, CK_GRID);
     phase_b<TWIN>(a, j, sm, g.cls + j * BTC, g.crs + j * BTC,
                   g.ns + 2 * j * BTC, stj);
     grid.sync();
     CK(PH_B, CK_GRID);
-    if (j + 1 < P) phase_c(a, j, xin, g.xs + j * BTD, sm, stj);
+    if (j + 1 < P) phase_c(a, j, xin, trunk(j + 1), sm, stj);
   }
 
   // ---------------------------------------------- the reverse walk
@@ -867,13 +904,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     const float* clj = g.cls + j * BTC;
     const float* crj = g.crs + j * BTC;
     float* dcj = g.dcs + 2 * j * BTC;
-    const float* dsrc = j == P - 1 ? g.dy : g.dys + j * BTD;
-    float* dout = j == 0 ? g.dx : g.dys + (j - 1) * BTD;
+    const float* dsrc = dcot(j);
     const size_t q2 = ((size_t)j * 3 + 2) * C;  // out row of the tables
     // ------------------------------------------ R1
     {
       float* s_dy = s_buf;  // [TT][SD]
-      const float* wo = a.wo + (size_t)j * C * D;
+      const W* wo = a.wo + (size_t)j * C * D;
       int merged = -1;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int b = tile / a.ntile, it = tile % a.ntile, t0 = it * TT;
@@ -884,16 +920,19 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
           CK(PH_R1, CK_MERGE);
           merged = b;
         }
-        stage_x(s_dy, dsrc + ((size_t)b * T + t0) * D, D, D8, rows);
+        const size_t rd = ((size_t)b * T + t0) * D;
+        if (LOWP && j == P - 1)  // dy read once, kept as its float32 copy
+          stage_x(s_dy, g.dy + rd, D, D8, rows, g.dys + j * BTD + rd);
+        else
+          stage_x(s_dy, dsrc + rd, D, D8, rows);
         CK_SYNC(PH_R1, CK_STAGE);
         // dno = dy @ wo^T: B[k = d][n = c] = wo[c][d]
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
         for (int k0 = 0; k0 < D8; k0 += 8) {
-          uint32_t ah[4], al[4], bh[2], bl[2];
-          frag_bt(wo, D, k0 + 2 * l.tq, n, k0 + 2 * l.tq < D, bh, bl);
-          frag_a(s_dy, SD, k0, l, ah, al);
-          mma3_add(acc, ah, al, bh, bl);
+          Product<W> pr;
+          pr.a(s_dy, SD, k0, l);
+          pr.mac_t(acc, wo, D, k0 + 2 * l.tq, n, k0 + 2 * l.tq < D);
         }
         CK(PH_R1, CK_PRODUCT);
         // xhat of the gate IN at the fragment's places; no for the GEMM
@@ -1017,13 +1056,12 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
         for (int i = 0; i < K; ++i) {
 #pragma unroll
           for (int br = 0; br < NB; ++br) {
-            const float* w = (br ? a.wr : a.wl) + ((size_t)j * K + i) * C * C;
+            const W* w = (br ? a.wr : a.wl) + ((size_t)j * K + i) * C * C;
 #pragma unroll 2
             for (int k0 = 0; k0 < C; k0 += 8) {
-              uint32_t ah[4], al[4], bh[2], bl[2];
-              frag_bt(w, C, k0 + 2 * l.tq, n, true, bh, bl);
-              frag_a(s_win + (br * K + i) * TT * SC, SC, k0, l, ah, al);
-              mma3_add(acc[br], ah, al, bh, bl);
+              Product<W> pr;
+              pr.a(s_win + (br * K + i) * TT * SC, SC, k0, l);
+              pr.mac_t(acc[br], w, C, k0 + 2 * l.tq, n, true);
             }
           }
         }
@@ -1059,7 +1097,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     {
       float* s_dh = s_buf;              // [TT][SC]
       float* s_red = s_buf + TT * SC;   // [NB][8][C]
-      const float* wi = a.wi + (size_t)j * D * C;
+      const W* wi = a.wi + (size_t)j * D * C;
       const int r = tid >> 4, c4 = (tid & 15) * 4;
       int merged = -1;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -1109,20 +1147,18 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                       s_red + br * 8 * C, tpart(0, j, br) + (size_t)tile * C);
         // s_dh is in: tile_colsum has a barrier
         CK(PH_R4, CK_OTHER);
-        // dout = dsrc + dh @ wi^T: B[k = c][n = d] = wi[d][c]
+        // the cotangent at TCM j's input = dsrc + dh @ wi^T:
+        // B[k = c][n = d] = wi[d][c]
         float acc[4][4] = {};
 #pragma unroll 2
         for (int k0 = 0; k0 < C; k0 += 8) {
-          uint32_t ah[4], al[4];
-          frag_a(s_dh, SC, k0, l, ah, al);
+          Product<W> pr;
+          pr.a(s_dh, SC, k0, l);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int n0 = 8 * (l.w + 8 * u);
-            if (n0 < D) {
-              uint32_t bh[2], bl[2];
-              frag_bt(wi, C, k0 + 2 * l.tq, n0 + l.g, n0 + l.g < D, bh, bl);
-              mma3_add(acc[u], ah, al, bh, bl);
-            }
+            if (n0 < D)
+              pr.mac_t(acc[u], wi, C, k0 + 2 * l.tq, n0 + l.g, n0 + l.g < D);
           }
         }
         CK(PH_R4, CK_PRODUCT);
@@ -1135,7 +1171,11 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
             if (l.g + 8 * h >= rows) continue;
             const size_t od = ((size_t)b * T + t0 + l.g + 8 * h) * D + d;
             const float2 sv = *reinterpret_cast<const float2*>(dsrc + od);
-            st2(dout + od, sv.x + acc[u][2 * h], sv.y + acc[u][2 * h + 1]);
+            const float v0 = sv.x + acc[u][2 * h], v1 = sv.y + acc[u][2 * h + 1];
+            if (j == 0)
+              st2(g.dx + od, v0, v1);  // bf16: rounded once, here
+            else
+              st2(g.dys + (j - 1) * BTD + od, v0, v1);
           }
         }
         CK(PH_R4, CK_OTHER);
@@ -1182,10 +1222,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// A chunk's partial of a gradient tile, as the sum kernel reads it
+__device__ __forceinline__ void part_store(float* p, float u, float v) {
+  st2(p, u, v);
+}
+
 // Block (chunk, job): job = j * (2 nd + NB K) + r with r < nd a tile of
 // dwi[j] (rows 64 r of D), r < nd + NB K a tap (branch, i) of dw[j], else a
 // tile of dwo[j] (columns 64 (r - nd - NB K) of D). out[m][n] = sum over
-// the chunk's rows of A[row - shift][a0 + m] B[row][b0 + n].
+// the chunk's rows of A[row - shift][a0 + m] B[row][b0 + n]. LOWP (bf16
+// training): each k-step is one bf16 product of the operands rounded to
+// bf16, into zeroed registers and added in float32; else three TF32
+// products, a stage's k-steps into zeroed registers.
+template <bool LOWP>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     tcm_chain_wgrad_kernel(WArgs w) {
   extern __shared__ float4 smem4[];
@@ -1278,6 +1327,29 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     cp_async_commit();
     const float* as = ring + (kt % WG_STAGES) * WG_STAGE_FLOATS;
     const float* bs = as + WG_BK * WG_S;
+    if constexpr (LOWP) {
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 8; ++ks) {
+        // the TF32 fragments' (k = tq, tq + 4) slots as one bf16 pair
+        const float* ak = as + (ks * 8 + l.tq) * WG_S + m0 + l.g;
+        const float* bk = bs + (ks * 8 + l.tq) * WG_S + n0 + l.g;
+        uint32_t a2[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* am = ak + mt * 16;
+          a2[mt][0] = pack_bf16(am[0], am[4 * WG_S]);
+          a2[mt][1] = pack_bf16(am[8], am[4 * WG_S + 8]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t b = pack_bf16(bk[nt * 8], bk[4 * WG_S + nt * 8]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_bf16_add(sum[mt][nt], a2[mt], b);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -1320,18 +1392,22 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       const int m = m0 + mt * 16 + l.g, nn = n0 + nt * 8 + 2 * l.tq;
       if (nn >= nb) continue;
       if (m < ma)
-        st2(out + (size_t)m * ldo + nn, sum[mt][nt][0], sum[mt][nt][1]);
+        part_store(out + (size_t)m * ldo + nn, sum[mt][nt][0],
+                   sum[mt][nt][1]);
       if (m + 8 < ma)
-        st2(out + (size_t)(m + 8) * ldo + nn, sum[mt][nt][2], sum[mt][nt][3]);
+        part_store(out + (size_t)(m + 8) * ldo + nn, sum[mt][nt][2],
+                   sum[mt][nt][3]);
     }
 }
 
 // grads[i] = the chunks' partials summed in chunk order (the products), or
 // the walk's per-tile parts summed in tile order (the (P, 3, C) tables);
-// zero for a single-branch group's wr and table row 1.
+// zero for a single-branch group's wr and table row 1. Summed in float32,
+// then written in TO (bf16 training: rounded once, here).
+template <typename TO>
 __global__ void tcm_chain_grad_sum_kernel(const float* __restrict__ part,
                                           const float* __restrict__ tp,
-                                          float* __restrict__ grads,
+                                          TO* __restrict__ grads,
                                           long long np, long long o_wr,
                                           long long o_wo, long long o_al,
                                           int nchunk, int P, int ntiles,
@@ -1357,7 +1433,7 @@ __global__ void tcm_chain_grad_sum_kernel(const float* __restrict__ part,
       s = (u[0] + u[1]) + (u[2] + u[3]);
     }
   }
-  grads[i] = s;
+  st1(grads + i, s);
 }
 
 cudaError_t sm_count(int* n_sm) {
@@ -1396,16 +1472,17 @@ const void* fwd_kernel(bool twin) {
               : (const void*)tcm_chain_fwd_kernel<false, W>;
 }
 
+template <typename W = float>
 const void* bwd_kernel(bool twin) {
-  return twin ? (const void*)tcm_chain_bwd_kernel<true>
-              : (const void*)tcm_chain_bwd_kernel<false>;
+  return twin ? (const void*)tcm_chain_bwd_kernel<true, W>
+              : (const void*)tcm_chain_bwd_kernel<false, W>;
 }
 
-// The grid of the backward's walk (bwd), the forward, or the bf16 forward
+// The grid of the backward's walk (bwd) or the forward, float32 or bf16
 // (lowp)
 cudaError_t grid_of(bool bwd, bool twin, int K, int B, int T, int* grid,
                     int* per_sm, bool lowp = false) {
-  return coop_grid(bwd ? bwd_kernel(twin)
+  return coop_grid(bwd ? (lowp ? bwd_kernel<bf16>(twin) : bwd_kernel(twin))
                        : lowp ? fwd_kernel<bf16>(twin) : fwd_kernel(twin),
                    smem_floats(twin, K) * sizeof(float),
                    B * ((T + TT - 1) / TT), grid, per_sm);
@@ -1464,26 +1541,29 @@ void fill_args(ArgsT<W>& a, const W* x, const W* wi, const W* wl, const W* wr,
 }
 
 // The backward's workspace after the forward's scratch, in floats, in the
-// order of BArgs (xs, hs, cls, crs first: the wrapper reads them back).
+// order of BArgsT (xs, hs, cls, crs first: the wrapper reads them back; a
+// bf16 chain keeps P trunk and P cotangent slots).
 struct BwdLayout {
   long long xs, hs, cls, crs, st, ns, nos, dys, dcs, dhs, dno, dnb, tp, part,
       total;
 };
 
-BwdLayout bwd_layout(int B, int T, int D, int K, int P, int chunks) {
+BwdLayout bwd_layout(int B, int T, int D, int K, int P, int chunks,
+                     bool lowp) {
   const long long ntile = (T + TT - 1) / TT;
   const long long btc = (long long)B * T * C, btd = (long long)B * T * D;
   const long long g = (long long)B * ntile;
+  const long long slots = lowp ? P : P - 1;  // trunk and cotangent slots
   BwdLayout o;
   long long p = 3LL * btc + 3LL * g * C * 2;  // the forward's scratch
-  o.xs = p; p += (P - 1) * btd;
+  o.xs = p; p += slots * btd;
   o.hs = p; p += P * btc;
   o.cls = p; p += P * btc;
   o.crs = p; p += P * btc;
   o.st = p; p += P * 3LL * g * C * 2;
   o.ns = p; p += 2LL * P * btc;
   o.nos = p; p += P * btc;
-  o.dys = p; p += (P - 1) * btd;
+  o.dys = p; p += slots * btd;
   o.dcs = p; p += 2LL * P * btc;
   o.dhs = p; p += P * btc;
   o.dno = p; p += btc;
@@ -1549,17 +1629,103 @@ extern "C" int eabnet_tcm_chain_geometry(int bwd, int lowp, int twin, int K,
   return grid_of(bwd != 0, twin != 0, K, B, T, &out[0], &out[1], lowp != 0);
 }
 
-// Floats of scratch for one backward launch (negative on a CUDA error).
+// Floats of scratch for one backward launch (negative on a CUDA error);
+// lowp: bf16 training's.
 extern "C" long long eabnet_tcm_chain_bwd_workspace(int B, int T, int D, int K,
-                                                    int P, int twin) {
+                                                    int P, int twin,
+                                                    int lowp) {
   int grid = 0, per_sm = 0;
   if (bad_shape(B, T, D, K, P) ||
-      grid_of(true, twin != 0, K, B, T, &grid, &per_sm) != cudaSuccess)
+      grid_of(true, twin != 0, K, B, T, &grid, &per_sm, lowp != 0) !=
+          cudaSuccess)
     return -1;
   const int chunks = wgrad_chunks(B, T, D, K, P, twin != 0);
   if (chunks < 1) return -1;
-  return bwd_layout(B, T, D, K, P, chunks).total;
+  return bwd_layout(B, T, D, K, P, chunks, lowp != 0).total;
 }
+
+namespace {
+
+// The backward's three launches on one stream (see eabnet_tcm_chain_bwd).
+template <typename W>
+cudaError_t launch_bwd(const W* x, const W* dy, const W* wi, const W* wl,
+                       const W* wr, const W* wo, const W* al, const W* ga,
+                       const W* be, W* dx, W* grads, float* work, int B, int T,
+                       int D, int K, int P, const int* dils, int twin,
+                       cudaStream_t s) {
+  constexpr bool LOWP = sizeof(W) == 2;
+  if (bad_shape(B, T, D, K, P)) return cudaErrorInvalidValue;
+  int grid = 0, per_sm = 0;
+  cudaError_t err = grid_of(true, twin != 0, K, B, T, &grid, &per_sm, LOWP);
+  if (err != cudaSuccess) return err;
+  const int chunks = wgrad_chunks(B, T, D, K, P, twin != 0);
+  if (chunks < 1) return cudaErrorInvalidDevice;
+  const BwdLayout o = bwd_layout(B, T, D, K, P, chunks, LOWP);
+  BArgsT<W> g;
+  fill_args(g.f, x, wi, wl, wr, wo, al, ga, be, nullptr, work, B, T, D, K, P,
+            dils);
+  g.dy = dy;
+  g.dx = dx;
+  g.xs = work + o.xs;
+  g.hs = work + o.hs;
+  g.cls = work + o.cls;
+  g.crs = work + o.crs;
+  g.st = work + o.st;
+  g.ns = work + o.ns;
+  g.nos = work + o.nos;
+  g.dys = work + o.dys;
+  g.dcs = work + o.dcs;
+  g.dhs = work + o.dhs;
+  g.dno = work + o.dno;
+  g.dnb = work + o.dnb;
+  g.tp = work + o.tp;
+  void* params[] = {&g};
+  const size_t smem = smem_floats(twin != 0, K) * sizeof(float);
+  err = cudaLaunchCooperativeKernel(bwd_kernel<W>(twin != 0), dim3(grid),
+                                    dim3(NT), params, smem, s);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // the GEMM reads only float32: a bf16 chain's x and dy are their copies
+  // in trunk slot 0 and cotangent slot P-1
+  const size_t btd = (size_t)B * T * D;
+  WArgs w;
+  if constexpr (LOWP) {
+    w.x = g.xs;
+    w.xs = g.xs + btd;
+    w.dy = g.dys + (P - 1) * btd;
+  } else {
+    w.x = x;
+    w.xs = g.xs;
+    w.dy = dy;
+  }
+  w.ns = g.ns; w.nos = g.nos; w.dys = g.dys;
+  w.dcs = g.dcs; w.dhs = g.dhs; w.part = work + o.part;
+  w.np = grad_floats(D, K, P);
+  w.o_wl = (long long)P * D * C;
+  w.o_wr = w.o_wl + (long long)P * K * C * C;
+  w.o_wo = w.o_wr + (long long)P * K * C * C;
+  w.B = B; w.T = T; w.D = D; w.K = K; w.P = P; w.NB = twin ? 2 : 1;
+  w.nd = (D + 63) / 64;
+  for (int j = 0; j < MAXP; ++j) w.dil[j] = g.f.dil[j];
+  const size_t wsmem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
+  err = cudaFuncSetAttribute(tcm_chain_wgrad_kernel<LOWP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wsmem));
+  if (err != cudaSuccess) return err;
+  const int jobs = P * (2 * w.nd + w.NB * K);
+  tcm_chain_wgrad_kernel<LOWP><<<dim3(chunks, jobs), NT, wsmem, s>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long o_al = w.o_wo + (long long)P * C * D;
+  tcm_chain_grad_sum_kernel<<<(unsigned)((w.np + 255) / 256), 256, 0, s>>>(
+      w.part, g.tp, grads, w.np, w.o_wr, w.o_wo, o_al, chunks, P,
+      B * g.f.ntile, twin);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // Backward of eabnet_tcm_chain_fwd: x and dy (B, T, D) and the weights ->
 // dx (B, T, D) and grads = [wi, wl, wr, wo, alphas, gammas, betas] packed
@@ -1579,64 +1745,44 @@ extern "C" int eabnet_tcm_chain_bwd(const float* x, const float* dy,
                                     float* work, int B, int T, int D, int K,
                                     int P, const int* dils, int twin,
                                     void* stream) {
+  return launch_bwd(x, dy, wi, wl, wr, wo, al, ga, be, dx, grads, work, B, T,
+                    D, K, P, dils, twin, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of bf16 training: as eabnet_tcm_chain_bwd with x, dy, the
+// weights, the tables, dx and grads in bfloat16 and the workspace of
+// eabnet_tcm_chain_bwd_workspace(..., lowp = 1). Its trunk slots hold the
+// float32 inputs of all P TCMs (slot 0 x's copy), then h and the conv
+// outputs as above; after them, past the statistics and the normalised
+// inputs, the float32 cotangents at the P TCMs' outputs (slot P-1 dy's
+// copy), where eabnet_tcm_chain_bwd_offsets says.
+extern "C" int eabnet_tcm_chain_bwd_bf16(const bf16* x, const bf16* dy,
+                                         const bf16* wi, const bf16* wl,
+                                         const bf16* wr, const bf16* wo,
+                                         const bf16* al, const bf16* ga,
+                                         const bf16* be, bf16* dx,
+                                         bf16* grads, float* work, int B,
+                                         int T, int D, int K, int P,
+                                         const int* dils, int twin,
+                                         void* stream) {
+  return launch_bwd(x, dy, wi, wl, wr, wo, al, ga, be, dx, grads, work, B, T,
+                    D, K, P, dils, twin, static_cast<cudaStream_t>(stream));
+}
+
+// Offsets (floats) of the backward's trunk slots, cotangent slots and
+// normalised gate outputs no (P, B, T, C) in its workspace: out = {xs,
+// dys, nos}. Returns a cudaError_t.
+extern "C" int eabnet_tcm_chain_bwd_offsets(int B, int T, int D, int K, int P,
+                                            int twin, int lowp,
+                                            long long* out) {
   if (bad_shape(B, T, D, K, P)) return cudaErrorInvalidValue;
-  int grid = 0, per_sm = 0;
-  cudaError_t err = grid_of(true, twin != 0, K, B, T, &grid, &per_sm);
-  if (err != cudaSuccess) return err;
   const int chunks = wgrad_chunks(B, T, D, K, P, twin != 0);
   if (chunks < 1) return cudaErrorInvalidDevice;
-  const BwdLayout o = bwd_layout(B, T, D, K, P, chunks);
-  BArgs g;
-  fill_args(g.f, x, wi, wl, wr, wo, al, ga, be, nullptr, work, B, T, D, K, P,
-            dils);
-  g.dy = dy;
-  g.dx = dx;
-  g.xs = work + o.xs;
-  g.hs = work + o.hs;
-  g.cls = work + o.cls;
-  g.crs = work + o.crs;
-  g.st = work + o.st;
-  g.ns = work + o.ns;
-  g.nos = work + o.nos;
-  g.dys = work + o.dys;
-  g.dcs = work + o.dcs;
-  g.dhs = work + o.dhs;
-  g.dno = work + o.dno;
-  g.dnb = work + o.dnb;
-  g.tp = work + o.tp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* params[] = {&g};
-  const size_t smem = smem_floats(twin != 0, K) * sizeof(float);
-  err = cudaLaunchCooperativeKernel(bwd_kernel(twin != 0), dim3(grid),
-                                    dim3(NT), params, smem, s);
-  if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  WArgs w;
-  w.x = x; w.dy = dy; w.xs = g.xs; w.ns = g.ns; w.nos = g.nos; w.dys = g.dys;
-  w.dcs = g.dcs; w.dhs = g.dhs; w.part = work + o.part;
-  w.np = grad_floats(D, K, P);
-  w.o_wl = (long long)P * D * C;
-  w.o_wr = w.o_wl + (long long)P * K * C * C;
-  w.o_wo = w.o_wr + (long long)P * K * C * C;
-  w.B = B; w.T = T; w.D = D; w.K = K; w.P = P; w.NB = twin ? 2 : 1;
-  w.nd = (D + 63) / 64;
-  for (int j = 0; j < MAXP; ++j) w.dil[j] = g.f.dil[j];
-  const size_t wsmem = sizeof(float) * WG_STAGES * WG_STAGE_FLOATS;
-  err = cudaFuncSetAttribute(tcm_chain_wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wsmem));
-  if (err != cudaSuccess) return err;
-  const int jobs = P * (2 * w.nd + w.NB * K);
-  tcm_chain_wgrad_kernel<<<dim3(chunks, jobs), NT, wsmem, s>>>(w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long o_al = w.o_wo + (long long)P * C * D;
-  tcm_chain_grad_sum_kernel<<<(unsigned)((w.np + 255) / 256), 256, 0, s>>>(
-      w.part, g.tp, grads, w.np, w.o_wr, w.o_wo, o_al, chunks, P,
-      B * g.f.ntile, twin);
-  return cudaGetLastError();
+  const BwdLayout o = bwd_layout(B, T, D, K, P, chunks, lowp != 0);
+  out[0] = o.xs;
+  out[1] = o.dys;
+  out[2] = o.nos;
+  return cudaSuccess;
 }
 
 #ifdef TCM_CHAIN_CLOCKS

@@ -1,5 +1,6 @@
 // float32 products on the tensor cores as three TF32 products (3xTF32),
-// shared by the port's kernels (lstm_bf.cu, tcm_chain.cu).
+// and products of bf16 operands as one bf16 product, shared by the port's
+// kernels (lstm_bf.cu, tcm_chain.cu).
 //
 // x = hi + lo for the 3xTF32 split. hi is x rounded to TF32 (10 mantissa
 // bits, to nearest, ties away from zero: cvt.rna.tf32.f32's rounding, done
@@ -10,6 +11,8 @@
 // long reduction adds the mma results of a few k-steps into float32 sums.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -41,4 +44,34 @@ static __device__ __forceinline__ void split4(const float* v, uint32_t* hi,
                                        uint32_t* lo) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_tf32(v[i], hi[i], lo[i]);
+}
+
+// Two floats rounded to bf16 and packed, the first in the low half (the
+// lower k of an mma operand pair)
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a b, mma.sync m16n8k8 with bf16 operands and a float32 sum. A row
+// pair (k, k + 1) in one register: with frag_a's permuted TF32 k slots
+// (tq and tq + 4 hold k0 + 2 tq and k0 + 2 tq + 1), the bf16 fragment is
+// the same two values of rows g and g + 8 in their natural order, and B's
+// register the same two k of column g.
+static __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// c += a b as one bf16 mma into zeroed registers, then a float32 add: the
+// tensor cores' float32 sum truncates, so a long chain drifts
+static __device__ __forceinline__ void mma_bf16_add(float* c,
+                                             const uint32_t* a, uint32_t b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
 }

@@ -35,15 +35,19 @@ _SIGNATURES = {  # C function -> (argtypes, restype)
     "eabnet_lstm_bf_fwd": ([_P] * 5 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_fwd_bf16": ([_P] * 5 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_fwd_train": ([_P] * 8 + [_I, _I, _P], _I),
+    "eabnet_lstm_bf_fwd_train_bf16": ([_P] * 8 + [_I, _I, _P], _I),
     "eabnet_lstm_bf_fwd_lanes_per_block": ([_I], _I),
     "eabnet_lstm_bf_bwd_workspace": ([_I, _I], ctypes.c_longlong),
     "eabnet_lstm_bf_bwd": ([_P] * 13 + [_I, _I, _P], _I),
+    "eabnet_lstm_bf_bwd_bf16": ([_P] * 13 + [_I, _I, _P], _I),
     "eabnet_tcm_chain_fwd": ([_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_tcm_chain_fwd_bf16": ([_P] * 10 + [_I] * 5 + [_P, _I, _P], _I),
     "eabnet_tcm_chain_workspace": ([_I, _I], ctypes.c_longlong),
     "eabnet_tcm_chain_geometry": ([_I] * 6 + [_P], _I),
-    "eabnet_tcm_chain_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
+    "eabnet_tcm_chain_bwd_workspace": ([_I] * 7, ctypes.c_longlong),
     "eabnet_tcm_chain_bwd": ([_P] * 12 + [_I] * 5 + [_P, _I, _P], _I),
+    "eabnet_tcm_chain_bwd_bf16": ([_P] * 12 + [_I] * 5 + [_P, _I, _P], _I),
+    "eabnet_tcm_chain_bwd_offsets": ([_I] * 7 + [_P], _I),
     "eabnet_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -16,14 +16,19 @@ Weights come stacked over the group's p TCMs, as
 alphas, gammas, betas (p, 3, C))`` with conv taps as (tap, in, out) and
 the (p, 3, C) rows ``[branch L, branch R (L again when single), out]``.
 
-bfloat16 serving follows the Pallas kernel's semantics (``wdt`` there): x
-and every weight come in bf16; each product is the float32 product of
-bf16 operands with a float32 sum (its activation operand rounded to bf16
-where it enters the product); the trunk stays float32 between the TCMs of
-the group and is rounded to bf16 once, at the group's output; the PReLU,
-the gate and the IN statistics are float32, with the slopes, scales and
-biases read as float32 from their bf16 values. bf16 runs without autograd
-only: its backward is not ported.
+bfloat16 follows the Pallas kernels' semantics (``wdt`` there): x and
+every weight come in bf16; each product is the float32 product of bf16
+operands with a float32 sum (its activation operand rounded to bf16 where
+it enters the product); the trunk stays float32 between the TCMs of the
+group and is rounded to bf16 once, at the group's output; the PReLU, the
+gate and the IN statistics are float32, with the slopes, scales and
+biases read as float32 from their bf16 values. The bf16 backward
+recomputes the chain so, carries the cotangent in float32 across the TCMs
+(it arrives in bf16), rounds every product operand to bf16 (the cotangent
+too), keeps the IN and PReLU derivatives float32, writes dx in bf16 and
+sums each weight gradient in float32 before rounding it to bf16 once.
+Under autograd a bf16 CPU tensor takes the plain bf16 backward
+(``_TCMChainPlain``), not autograd of the plain forward.
 """
 
 from __future__ import annotations
@@ -127,38 +132,44 @@ def _shift(a, s):
     return a
 
 
-def _forward_saves(x, weights, dilations, twin, acts):
+def _forward_saves(x, weights, dilations, twin, acts, lowp=False):
     """The chain forward with what the reverse walk reads: (trunk inputs,
-    per-TCM saves); ``acts`` replaces trunk inputs, h and conv outputs."""
+    per-TCM saves); ``acts`` replaces trunk inputs, h and conv outputs;
+    ``lowp`` rounds each product's activation operand to bf16."""
     wi, wl, wr, wo, al, ga, be = weights
     branches = ((0, wl), (1, wr))[:2 if twin else 1]
     inputs, saves = [], []
     for j, dil in enumerate(dilations):
         if acts is not None and j:
-            x = acts["x"][j - 1]
+            x = acts["x"][j - 1].to(x.dtype)
         inputs.append(x)
-        s = {"h": x @ wi[j] if acts is None else acts["h"][j]}
+        s = {"h": _operand(x, lowp) @ wi[j] if acts is None
+             else acts["h"][j].to(x.dtype)}
         convs = []
         for bi, w in branches:
             n, s[f"xhat{bi}"], s[f"inv{bi}"] = _in_saved(
                 _prelu(s["h"], al[j, bi]), ga[j, bi], be[j, bi])
             s[f"n{bi}"] = n
-            convs.append(_causal_conv(n, w[j], dil) if acts is None
-                         else acts["c"][bi][j])
+            convs.append(_causal_conv(_operand(s[f"n{bi}"], lowp), w[j], dil)
+                         if acts is None else acts["c"][bi][j].to(x.dtype))
         s["c"] = convs
         s["g"] = convs[0] * torch.sigmoid(convs[1]) if twin else convs[0]
         no, s["xhat_o"], s["inv_o"] = _in_saved(
             _prelu(s["g"], al[j, 2]), ga[j, 2], be[j, 2])
         s["no"] = no
-        x = x + no @ wo[j]
+        x = x + _operand(s["no"], lowp) @ wo[j]
         saves.append(s)
     return inputs, saves
 
 
 def tcm_chain_activations_reference(x, weights, dilations, twin):
     """Plain PyTorch: the forward activations the backward kernel keeps,
-    in the layout of ``_launch_bwd(..., activations=True)``."""
-    inputs, saves = _forward_saves(x, weights, dilations, twin, None)
+    in the layout of ``_launch_bwd(..., activations=True)`` (bf16 weights:
+    float32, with the bf16 semantics of the module doc)."""
+    lowp = weights[0].dtype == torch.bfloat16
+    if lowp:
+        x, weights = x.float(), tuple(w.float() for w in weights)
+    inputs, saves = _forward_saves(x, weights, dilations, twin, None, lowp)
     cl = torch.stack([s["c"][0] for s in saves])
     cr = (torch.stack([s["c"][1] for s in saves]) if twin
           else torch.zeros_like(cl))
@@ -178,7 +189,7 @@ def prelu_inputs(acts, twin):
 def tcm_chain_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
                             weights: Tuple[torch.Tensor, ...],
                             dilations: Sequence[int], twin: bool,
-                            acts=None):
+                            acts=None, *, compute=torch.float32):
     """Plain PyTorch backward, written out as the Pallas backward walks it
     (not autograd): recompute the chain, then go through it in reverse.
     x, dy (B, T, D) -> (dx, (dwi, dwl, dwr, dwo, dalphas, dgammas,
@@ -186,21 +197,33 @@ def tcm_chain_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
     branches that run get a gradient: a single-branch chain leaves ``wr``
     and row 1 of the (p, 3, C) tables at zero.
 
+    bf16 weights: the bf16 semantics of the module doc, computed in
+    ``compute`` around the bf16 operands; dx comes out in x's dtype, the
+    gradients in bf16. As in the Pallas kernel, x and dy may be float32
+    with bf16 weights (one TCM of a chain on its float32 trunk and
+    cotangent).
+
     ``acts`` (from ``_launch_bwd(..., activations=True)``) replaces the
     recomputed trunk inputs, in-projections ``h`` and conv outputs by the
     backward kernel's own: a PReLU input within float32 noise of 0 then
     takes the same branch in both, and the comparison sees only the
     reverse walk's arithmetic."""
+    x_dtype, lowp = x.dtype, weights[0].dtype == torch.bfloat16
+    if lowp:
+        # the cotangent arrives rounded to x's dtype, as the kernel takes it
+        x, dy = x.to(compute), dy.to(x_dtype).to(compute)
+        weights = tuple(w.to(compute) for w in weights)
     wi, wl, wr, wo, al, ga, be = weights
     k = wl.shape[1]
     grads = [torch.zeros_like(w) for w in weights]
     dwi, dwl, dwr, dwo, dal, dga, dbe = grads
     branches = ((0, wl, dwl), (1, wr, dwr))[:2 if twin else 1]
-    inputs, saves = _forward_saves(x, weights, dilations, twin, acts)
+    inputs, saves = _forward_saves(x, weights, dilations, twin, acts, lowp)
     for j in range(len(dilations) - 1, -1, -1):
         s, dil = saves[j], dilations[j]
-        dno = dy @ wo[j].t()
-        dwo[j] += torch.einsum("btc,btd->cd", s["no"], dy)
+        dyr = _operand(dy, lowp)  # the cotangent as a product operand
+        dno = dyr @ wo[j].t()
+        dwo[j] += torch.einsum("btc,btd->cd", _operand(s["no"], lowp), dyr)
         dpo, dga[j, 2], dbe[j, 2] = _in_bwd(s["xhat_o"], s["inv_o"],
                                             ga[j, 2], dno)
         dg, dal[j, 2] = _prelu_bwd(s["g"], al[j, 2], dpo)
@@ -211,19 +234,66 @@ def tcm_chain_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
             dcs = (dg,)
         dh = torch.zeros_like(s["h"])
         for (bi, w, dw), dc in zip(branches, dcs):
+            dc = _operand(dc, lowp)
             dn = torch.zeros_like(dc)
             for i in range(k):
                 shift = (k - 1 - i) * dil
                 dw[j, i] += torch.einsum(
-                    "btk,btc->kc", _shift(s[f"n{bi}"], shift), dc)
+                    "btk,btc->kc", _operand(_shift(s[f"n{bi}"], shift), lowp),
+                    dc)
                 dn = dn + _shift(dc @ w[j, i].t(), -shift)
             dp, dga[j, bi], dbe[j, bi] = _in_bwd(
                 s[f"xhat{bi}"], s[f"inv{bi}"], ga[j, bi], dn)
             dhb, dal[j, bi] = _prelu_bwd(s["h"], al[j, bi], dp)
             dh = dh + dhb
-        dwi[j] += torch.einsum("btd,btc->dc", inputs[j], dh)
+        dh = _operand(dh, lowp)
+        dwi[j] += torch.einsum("btd,btc->dc", _operand(inputs[j], lowp), dh)
         dy = dy + dh @ wi[j].t()
+    if lowp:
+        return dy.to(x_dtype), tuple(g.to(torch.bfloat16) for g in grads)
     return dy, tuple(grads)
+
+
+def float32_nudged(v: torch.Tensor, seed: int) -> torch.Tensor:
+    """float32 v with each entry moved by float32 rounding, at random: one
+    ulp up, one ulp down, or kept."""
+    g = torch.Generator(device=v.device).manual_seed(seed)
+    u = torch.randint(-1, 2, v.shape, generator=g, device=v.device)
+    inf = torch.full_like(v, float("inf"))
+    return torch.where(u > 0, torch.nextafter(v, inf),
+                       torch.where(u < 0, torch.nextafter(v, -inf), v))
+
+
+def tcm_chain_bwd_probes(x, dy, weights, dilations, twin, seed=0):
+    """Plain bf16 backwards that differ from ``tcm_chain_bwd_reference(x,
+    dy, weights, dilations, twin)`` by float32 rounding alone, and take
+    nothing from a kernel: the same computed in float64; on the CPU
+    (another float32 summation order in every product and reduction; on
+    a CPU x, the same as it); on x moved by float32 rounding
+    (``float32_nudged``); and on the plain forward's activations (trunk
+    inputs, h, conv outputs), each moved so. -> four (dx, grads) on x's
+    device, as that returns them. How far they lie from it is D, how far
+    float32 rounding alone moves the plain version: a bf16 rounding that
+    flips there moves what follows by a bf16 step, so D is a sample of a
+    heavy-tailed spread, and the nearest of several samples says more
+    than one."""
+    xf, dyr = x.float(), dy.to(x.dtype).float()
+    out = [tcm_chain_bwd_reference(x, dy, weights, dilations, twin,
+                                   compute=torch.float64)]
+    dx, grads = tcm_chain_bwd_reference(
+        x.cpu(), dy.cpu(), tuple(w.cpu() for w in weights), dilations, twin)
+    out.append((dx.to(x.device), tuple(g.to(x.device) for g in grads)))
+    dx, grads = tcm_chain_bwd_reference(float32_nudged(xf, seed), dyr,
+                                        weights, dilations, twin)
+    out.append((dx.to(x.dtype), grads))
+    acts = tcm_chain_activations_reference(xf, weights, dilations, twin)
+    acts = {"x": float32_nudged(acts["x"], seed + 1),
+            "h": float32_nudged(acts["h"], seed + 2),
+            "c": tuple(float32_nudged(c, seed + 3 + i)
+                       for i, c in enumerate(acts["c"]))}
+    out.append(tcm_chain_bwd_reference(x, dy, weights, dilations, twin,
+                                       acts=acts))
+    return out
 
 
 def _check(x, weights, dilations):
@@ -233,10 +303,6 @@ def _check(x, weights, dilations):
         raise TypeError("tcm_chain takes all float32 or all bfloat16 "
                         "tensors, got " + ", ".join(str(t.dtype)
                                                     for t in tensors))
-    if x.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors):
-        raise TypeError("tcm_chain: bfloat16 runs without autograd (the "
-                        "bfloat16 backward is not ported)")
     if any(t.device != x.device for t in tensors):
         raise ValueError("tcm_chain: all tensors must be on one device")
     if x.dim() != 3:
@@ -285,6 +351,12 @@ def geometry(b: int, t: int, k: int, twin: bool, backward: bool,
                 rounds_max=-(-tiles // out[0]), rounds_mean=tiles / out[0])
 
 
+def _count(entry: str) -> None:
+    """One launch of the C entry ``eabnet_tcm_chain_<entry>``."""
+    n = tcm_chain.entry_launches
+    n[entry] = n.get(entry, 0) + 1
+
+
 def _launch_fwd(x, weights, dilations, twin, trunk=False):
     """The forward kernel -> y, and with ``trunk`` (bf16 only) also a copy
     of the float32 trunk left in the workspace: the trunk input of the
@@ -299,14 +371,15 @@ def _launch_fwd(x, weights, dilations, twin, trunk=False):
     work = torch.empty(n_work, dtype=torch.float32, device=x.device)
     dils = (ctypes.c_int * p)(*dilations)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = (lib.lib.eabnet_tcm_chain_fwd_bf16 if lowp
-          else lib.lib.eabnet_tcm_chain_fwd)
+    entry = "fwd_bf16" if lowp else "fwd"
+    fn = getattr(lib.lib, "eabnet_tcm_chain_" + entry)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), *(w.data_ptr() for w in weights),
                  y.data_ptr(), work.data_ptr(), b, t, d, k, p, dils,
                  int(twin), stream)
     lib.check(err, "tcm_chain kernel launch")
     tcm_chain.launches += 1
+    _count(entry)
     if not trunk:
         return y
     if not lowp:
@@ -337,50 +410,65 @@ def bf16_trunks(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
 
 
 def _launch_bwd(x, dy, weights, dilations, twin, activations=False):
-    """The backward kernel: -> (dx, (dwi, dwl, dwr, dwo, dalphas, dgammas,
-    dbetas)), and with ``activations`` also the forward it recomputed:
-    {"x": trunk inputs of TCMs 1..p-1 (p-1, B, T, D), "h": (p, B, T, C),
-    "c": (branch-L, branch-R) conv outputs, each (p, B, T, C)} (copies of
-    the kernel's workspace, laid out as ``csrc/tcm_chain.cu`` documents in
+    """The backward kernel (float32, or bf16 on bf16 tensors): -> (dx,
+    (dwi, dwl, dwr, dwo, dalphas, dgammas, dbetas)) in x's dtype, and with
+    ``activations`` also the forward it recomputed and the cotangents it
+    carried, float32: {"x": trunk inputs of TCMs 1..p-1 (p-1, B, T, D),
+    "h": (p, B, T, C), "c": (branch-L, branch-R) conv outputs, each (p, B,
+    T, C), "dy": the cotangents at the outputs of TCMs 0..p-2 (p-1, B, T,
+    D), "no": the normalised gate outputs (p, B, T, C)} (copies of the
+    kernel's workspace, laid out as ``csrc/tcm_chain.cu`` documents in
     ``eabnet_tcm_chain_bwd``)."""
     dy = dy.contiguous()
     b, t, d, k, p = _kernel_check(x, weights, dilations)
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise TypeError("tcm_chain backward: dy must have x's shape and "
+                        "dtype")
+    lowp = x.dtype == torch.bfloat16
     lib = load_library()
     n_work = int(lib.lib.eabnet_tcm_chain_bwd_workspace(b, t, d, k, p,
-                                                        int(twin)))
+                                                        int(twin), int(lowp)))
     if n_work < 0:
         raise RuntimeError("tcm_chain backward: the kernel cannot be sized "
                            "on this device")
     dx = torch.empty_like(x)
-    grads = torch.empty(sum(w.numel() for w in weights), dtype=torch.float32,
+    grads = torch.empty(sum(w.numel() for w in weights), dtype=x.dtype,
                         device=x.device)
     work = torch.empty(n_work, dtype=torch.float32, device=x.device)
     dils = (ctypes.c_int * p)(*dilations)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    entry = "bwd_bf16" if lowp else "bwd"
+    fn = getattr(lib.lib, "eabnet_tcm_chain_" + entry)
     with torch.cuda.device(x.device):
-        err = lib.lib.eabnet_tcm_chain_bwd(
-            x.data_ptr(), dy.data_ptr(), *(w.data_ptr() for w in weights),
-            dx.data_ptr(), grads.data_ptr(), work.data_ptr(), b, t, d, k, p,
-            dils, int(twin), stream)
+        err = fn(x.data_ptr(), dy.data_ptr(), *(w.data_ptr() for w in weights),
+                 dx.data_ptr(), grads.data_ptr(), work.data_ptr(), b, t, d, k,
+                 p, dils, int(twin), stream)
     lib.check(err, "tcm_chain backward kernel launch")
     tcm_chain.bwd_launches += 1
+    _count(entry)
     dw = tuple(g.view(w.shape) for g, w in zip(
         torch.split(grads, [w.numel() for w in weights]), weights))
     if not activations:
         return dx, dw
     c = weights[0].shape[-1]
     btc, btd = b * t * c, b * t * d
-    o = int(lib.lib.eabnet_tcm_chain_workspace(b, t))  # the forward's part
+    offs = (ctypes.c_longlong * 3)()
+    lib.check(lib.lib.eabnet_tcm_chain_bwd_offsets(
+        b, t, d, k, p, int(twin), int(lowp), offs), "tcm_chain offsets")
+    o = offs[0] + (btd if lowp else 0)  # bf16: slot 0 is x's copy
     xs = work[o:o + (p - 1) * btd].view(p - 1, b, t, d).clone()
     o += (p - 1) * btd
     hs, cl, cr = (work[o + i * p * btc:o + (i + 1) * p * btc]
                   .view(p, b, t, c).clone() for i in range(3))
-    return dx, dw, {"x": xs, "h": hs, "c": (cl, cr)}
+    dys = work[offs[1]:offs[1] + (p - 1) * btd].view(p - 1, b, t, d).clone()
+    nos = work[offs[2]:offs[2] + p * btc].view(p, b, t, c).clone()
+    return dx, dw, {"x": xs, "h": hs, "c": (cl, cr), "dy": dys, "no": nos}
 
 
 class _TCMChain(torch.autograd.Function):
-    """The chain on the card, with the backward kernel as its gradient.
-    Only the group input is saved; the backward recomputes the rest."""
+    """The chain on the card, with the backward kernel as its gradient
+    (float32 or bf16). Only the group input is saved; the backward
+    recomputes the rest."""
 
     @staticmethod
     def forward(ctx, x, dilations, twin, *weights):
@@ -396,25 +484,49 @@ class _TCMChain(torch.autograd.Function):
         return (dx, None, None) + grads
 
 
+class _TCMChainPlain(torch.autograd.Function):
+    """bf16 on the CPU: the plain forward, with the plain bf16 backward
+    (the explicit reverse walk) as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dilations, twin, *weights):
+        ctx.dilations, ctx.twin = dilations, twin
+        ctx.save_for_backward(x, *weights)
+        return tcm_chain_reference(x, weights, dilations, twin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *weights = ctx.saved_tensors
+        dx, grads = tcm_chain_bwd_reference(x, dy, tuple(weights),
+                                            ctx.dilations, ctx.twin)
+        return (dx, None, None) + grads
+
+
 def tcm_chain(x: torch.Tensor, weights: Tuple[torch.Tensor, ...],
               dilations: Sequence[int], twin: bool) -> torch.Tensor:
-    """Run one SqueezedTCNGroup: the plain version on a CPU tensor
-    (autograd of it is the gradient there), the CUDA kernels on a CUDA
-    tensor. bfloat16 tensors take the bf16 semantics (module doc) and the
-    bf16 forward kernel. Forward launches of either dtype are counted in
-    ``tcm_chain.launches``, backward launches in
-    ``tcm_chain.bwd_launches``."""
+    """Run one SqueezedTCNGroup: the plain version on a CPU tensor (in
+    float32 autograd of it is the gradient there, in bf16 the plain bf16
+    backward), the CUDA kernels on a CUDA tensor. bfloat16 tensors take
+    the bf16 semantics (module doc) and the bf16 kernels. Forward launches
+    of either dtype are counted in ``tcm_chain.launches``, backward
+    launches in ``tcm_chain.bwd_launches``, and every launch by its C
+    entry in ``tcm_chain.entry_launches`` ({"fwd", "fwd_bf16", "bwd",
+    "bwd_bf16"}: count)."""
     _check(x, weights, dilations)
+    dilations = tuple(int(v) for v in dilations)
+    grad = torch.is_grad_enabled() and any(
+        w.requires_grad for w in (x,) + tuple(weights))
     if x.device.type == "cpu":
+        if grad and x.dtype == torch.bfloat16:
+            return _TCMChainPlain.apply(x, dilations, bool(twin), *weights)
         return tcm_chain_reference(x, weights, dilations, twin)
     if x.device.type != "cuda":
         raise ValueError(f"tcm_chain: no kernel for device {x.device}")
-    dilations = tuple(int(v) for v in dilations)
-    if torch.is_grad_enabled() and any(
-            w.requires_grad for w in (x,) + tuple(weights)):
+    if grad:
         return _TCMChain.apply(x, dilations, bool(twin), *weights)
     return _launch_fwd(x, weights, dilations, twin)
 
 
 tcm_chain.launches = 0
 tcm_chain.bwd_launches = 0
+tcm_chain.entry_launches = {}

@@ -72,7 +72,14 @@ class LSTMBeamformer(nn.Module):
         b, c, t, f = x.shape
         # (B, C, T, F) -> (B, F, T, C) -> lanes (B*F, T, C)
         x = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
-        x = F.layer_norm(x, (c,), self.norm.scale, self.norm.bias, eps=1e-5)
+        if x.dtype == torch.float32:
+            x = F.layer_norm(x, (c,), self.norm.scale, self.norm.bias,
+                             eps=1e-5)
+        else:  # each op in x's dtype, as the JAX head computes it in bf16
+            mean = x.mean(dim=-1, keepdim=True)
+            var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+            x = (x - mean) / torch.sqrt(var + 1e-5) * self.norm.scale + \
+                self.norm.bias
         r1, r2 = self.rnn1, self.rnn2
         fr = current()
         if fr is not None:  # one frame: (1, L, H)

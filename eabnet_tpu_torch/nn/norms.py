@@ -147,10 +147,11 @@ class BatchNorm(_Affine):
     def frozen(self, x: torch.Tensor, mean: torch.Tensor,
                var: torch.Tensor) -> torch.Tensor:
         """Normalise with the given statistics: flax's ``(x - mean) *
-        (rsqrt(var + eps) * scale) + bias``."""
+        (rsqrt(var + eps) * scale) + bias``, computed in the statistics'
+        float32 and returned in x's dtype (flax's under bf16 compute)."""
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - _bcast(mean, x.dim())) * _bcast(mul, x.dim()) + \
-            _bcast(self.bias, x.dim())
+        return ((x - _bcast(mean, x.dim())) * _bcast(mul, x.dim()) +
+                _bcast(self.bias, x.dim())).to(x.dtype)
 
 
 NORMS = {

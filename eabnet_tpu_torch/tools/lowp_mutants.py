@@ -1,4 +1,4 @@
-"""Do the bf16 TCM-chain rules catch the faults they are meant to catch?
+"""Do the bf16 rules catch the faults they are meant to catch?
 
     python -m eabnet_tpu_torch.tools.lowp_mutants          # on the card
     python -m eabnet_tpu_torch.tools.lowp_mutants --cpu    # plain versions
@@ -22,9 +22,28 @@ its own ``build/``) and holds it to the rules the package is held to
   ``operand_conv``, the out-conv's or the dilated convs' activation
   operand left unrounded.
 
+The bf16 training backwards (PERF.md §2), with their own faults:
+``lstm_dgates``, the LSTM-BF walk's dgates left unrounded before the
+recurrent products (a second bf16 product on the rounding residual; in
+the plain version the unrounded dgates); ``c_f32``, the LSTM-BF training
+forward's cell states saved in float32 instead of bf16 (read so by the
+backward); ``tcm_wgrad_tiles``, the TCM-chain weight gradients rounded to
+bf16 per tile (the GEMM's chunk partials; in the plain version each
+16-frame tile's dwo) before their ordered sum instead of once;
+``tcm_bwd_trunk``, the trunk the TCM-chain backward recomputes rounded to
+bf16 after every TCM (in the plain version, the recomputed trunk of
+``_forward_saves``). On the
+card they are held to ``chip_smoke.lstm_train_lowp_case`` (L = 1,127)
+and ``chip_smoke.tcm_bwd_lowp_case`` (twin and single, B = 7), and to the
+bf16 train loss rule (``chip_smoke.bf16_train_rule``: 5 steps of the
+release model against the JAX golden); with ``--cpu`` to
+``tests/test_torch_lowp_train.py -k "backward or rounded_once"``. Each
+fault must fail its kernel's check.
+
 ``base`` is the unchanged copy and must pass; every fault must fail each
-per-TCM check. Prints each case's margins over R; exits 1 when a
-variant does not do what it must.
+per-TCM check (the forward's) or its kernel's check (the backward's).
+Prints each case's margins over R; exits 1 when a variant does not do
+what it must.
 """
 
 from __future__ import annotations
@@ -42,6 +61,8 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 OUT = os.path.join(ROOT, "build", "lowp_mutants")
 CU = "eabnet_tpu_torch/csrc/tcm_chain.cu"
 PY = "eabnet_tpu_torch/kernels/tcm_chain.py"
+LCU = "eabnet_tpu_torch/csrc/lstm_bf.cu"
+LPY = "eabnet_tpu_torch/kernels/lstm_bf.py"
 
 # variant -> [(file, text, replacement)]; each text occurs once
 CARD = {
@@ -84,6 +105,177 @@ CPU = {
     "operand_conv": [(PY, "_causal_conv(_operand(n, lowp), w[j], dil)",
                       "_causal_conv(n, w[j], dil)")],
 }
+
+# the backward faults: variant -> (patches on the card, patches of the
+# plain versions, the kernel whose check must fail)
+BWD = {
+    "base": ([], [], None),
+    "lstm_dgates": ([(LCU, """  uint32_t a[2];
+  __device__ __forceinline__ void load(const float* p, bool r0, bool r1) {
+    a[0] = a_word(p, r0);
+    a[1] = a_word(p + 8 * SD, r1);
+  }
+  __device__ __forceinline__ void mma(float* acc, uint32_t b) const {
+    mma_bf16(acc, a, b);
+  }""", """  uint32_t a[2], r[2];
+  __device__ __forceinline__ static float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ __forceinline__ void load(const float* p, bool r0, bool r1) {
+    a[0] = a_word(p, r0);
+    a[1] = a_word(p + 8 * SD, r1);
+    const float2 u = ld2(p, r0), v = ld2(p + 8 * SD, r1);
+    r[0] = pack_bf16(u.x - rnd(u.x), u.y - rnd(u.y));
+    r[1] = pack_bf16(v.x - rnd(v.x), v.y - rnd(v.y));
+  }
+  __device__ __forceinline__ void mma(float* acc, uint32_t b) const {
+    mma_bf16(acc, a, b);
+    mma_bf16(acc, r, b);
+  }""")],
+                    [(LPY, """        dg2 = _operand(dg2, lowp)  # the operand of every product below
+        dh2 = dg2 @ w_hh2.t()
+        dg1, dc1 = _cell_bwd(dh1 + dg2 @ w_ih2.t(), dc1, c1p, c1[s], gates1)
+        dg1 = _operand(dg1, lowp)
+        dh1 = dg1 @ w_hh1.t()""", """        dh2 = dg2 @ w_hh2.t()
+        dg1, dc1 = _cell_bwd(dh1 + dg2 @ w_ih2.t(), dc1, c1p, c1[s], gates1)
+        dh1 = dg1 @ w_hh1.t()
+        dg2 = _operand(dg2, lowp)
+        dg1 = _operand(dg1, lowp)""")], "lstm"),
+    "c_f32": ([(LCU, "using CSave = bf16;", "using CSave = float;"),
+               (LPY, "    dtypes = (xw1.dtype,) * 4",
+                "    dtypes = (xw1.dtype, torch.float32) * 2")],
+              [(LPY, """    return tuple(torch.stack(s).to(out_dtype) for s in seqs)""",
+                """    return tuple(torch.stack(s).to(out_dtype if i % 2 == 0
+                                   else xw1.dtype)
+                 for i, s in enumerate(seqs))""")], "lstm"),
+    "tcm_wgrad_tiles": ([(CU, """__device__ __forceinline__ void part_store(float* p, float u, float v) {
+  st2(p, u, v);""", """__device__ __forceinline__ void part_store(float* p, float u, float v) {
+  st2(p, __bfloat162float(__float2bfloat16_rn(u)),
+      __bfloat162float(__float2bfloat16_rn(v)));""")],
+                        [(PY, """        dwo[j] += torch.einsum("btc,btd->cd", _operand(s["no"], lowp), dyr)""",
+                          """        no_r, t_ = _operand(s["no"], lowp), dyr.shape[1]
+        dwo[j] += sum(_operand(torch.einsum(
+            "btc,btd->cd", no_r[:, i:i + 16], dyr[:, i:i + 16]), lowp)
+            for i in range(0, t_, 16))""")], "tcm"),
+    "tcm_bwd_trunk": ([(CU, """        st2(yout + o, xv.x + acc[u][2 * h], xv.y + acc[u][2 * h + 1]);""",
+                        """        float y0 = xv.x + acc[u][2 * h], y1 = xv.y + acc[u][2 * h + 1];
+        if constexpr (sizeof(W) == 2) {  // the backward's trunk update
+          if (static_cast<const void*>(xin) != static_cast<const void*>(yout)) {
+            y0 = __bfloat162float(__float2bfloat16_rn(y0));
+            y1 = __bfloat162float(__float2bfloat16_rn(y1));
+          }
+        }
+        st2(yout + o, y0, y1);""")],
+                      [(PY, """        x = x + _operand(s["no"], lowp) @ wo[j]
+        saves.append(s)""", """        x = _operand(x + _operand(s["no"], lowp) @ wo[j], lowp)
+        saves.append(s)""")], "tcm"),
+}
+
+CHILD_BWD = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1]); sys.path.append(sys.argv[2])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import eabnet_tpu_torch
+assert eabnet_tpu_torch.__file__.startswith(sys.argv[1])
+import chip_smoke as cs
+from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
+from eabnet_tpu_torch.config import ExperimentConfig
+from eabnet_tpu_torch.models import build_model
+from eabnet_tpu_torch.weights import load_jax_params
+exp = sys.argv[2] + "/release/composed_9mic"
+cfg = ExperimentConfig.load(exp + "/config.json")
+m = load_jax_params(build_model(cfg.model),
+                    load_params(latest_checkpoint(exp))).cuda()
+out = {}
+with torch.no_grad():
+    r = cs.lstm_train_lowp_case(m.eabnet.bf_map, 7 * 161, 601, 41)
+    out["lstm"] = dict(ok=bool(r["ok"]), margins=[
+        q["snr"] - q["r"] for q in r["fwd"] + r["bwd"]], needs=[
+        q["need"] - q["r"] for q in r["fwd"] + r["bwd"]])
+    for key, g, seed in (("twin", m.eabnet.stcn_0, 45),
+                         ("single", m.postnet.gag_0.glance.tcn_0, 49)):
+        r = cs.tcm_bwd_lowp_case(g, 7, 601, seed)
+        out[key] = dict(ok=bool(r["ok"]), each=r["each_margins"],
+                        trunk=r["trunk_margins"], wgrad=min(
+                            min(m.values()) for m in r["each_wgrad_margins"]
+                            if m),
+                        sums=r["sums"],
+                        chain={n: (q["snr"] - q["r"], q["need"] - q["r"])
+                               for n, q in zip(("dx",) + cs.TCM_GRADS,
+                                               r["chain"])})
+del m
+out["loss"] = cs.bf16_train_rule(sys.argv[3])
+print("RESULT " + json.dumps(out))
+"""
+
+
+def card_bwd() -> bool:
+    ok = True
+    for variant, (patches, _, kernel) in BWD.items():
+        dest = plant(variant, patches, ("release", "tests"))
+        run = subprocess.run([sys.executable, "-c", CHILD_BWD, dest, ROOT,
+                              variant], cwd=dest, capture_output=True,
+                             text=True)
+        line = [s for s in run.stdout.splitlines() if s.startswith("RESULT")]
+        if run.returncode or not line:
+            print(f"{variant}: did not run\n{run.stderr[-3000:]}")
+            ok = False
+            continue
+        res = json.loads(line[0][len("RESULT "):])
+        lm = res["lstm"]
+        print(f"{variant} lstm (h1, c1, h2, c2, dxw1, dw_hh1, dw_ih2, "
+              f"dw_hh2, db2): R + "
+              f"{', '.join(f'{a:.2f}' for a in lm['margins'])} (needs R + "
+              f"{', '.join(f'{a:.2f}' for a in lm['needs'])}) "
+              f"({'pass' if lm['ok'] else 'FAIL'})")
+        for key in ("twin", "single"):
+            r = res[key]
+            print(f"{variant} tcm {key}: recomputed trunk R + "
+                  f"{', '.join(f'{a:.2f}' for a in r['trunk'])}; each TCM's "
+                  f"dx R + {', '.join(f'{a:.2f}' for a in r['each'])}; "
+                  f"each TCM's weight gradients at least R + "
+                  f"{r['wgrad']:.2f}; each TCM's "
+                  f"dwo against its operands' float64 sum "
+                  f"{', '.join(f'{a:.2f}' for a in r['sums'])} dB; chain "
+                  + ", ".join(f"{n} R + {a:.2f} (needs {b:.2f})"
+                              for n, (a, b) in r["chain"].items())
+                  + f" ({'pass' if r['ok'] else 'FAIL'})")
+        loss = res["loss"]
+        print(f"{variant} train loss rule: R {loss['r']:.2f} dB, vs JAX bf16 "
+              f"{loss['s16']:.2f}, vs JAX float32 {loss['s32']:.2f} "
+              f"({'pass' if loss['ok'] else 'FAIL'})")
+        checks = {"lstm": lm["ok"],
+                  "tcm": res["twin"]["ok"] and res["single"]["ok"]}
+        want = (all(checks.values()) and loss["ok"] if kernel is None
+                else not checks[kernel])
+        ok &= want
+        print(f"{variant}: {'as it must' if want else 'NOT as it must'}")
+    return ok
+
+
+def cpu_bwd() -> bool:
+    ok = True
+    links = ("eabnet_tpu", "tests", "release", "pyproject.toml")
+    for variant, (_, patches, kernel) in BWD.items():
+        dest = plant("cpu_" + variant, patches, links)
+        run = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-s", "-p",
+             "no:cacheprovider", "-k", "backward or rounded_once", "-rA",
+             "tests/test_torch_lowp_train.py"],
+            cwd=dest, capture_output=True, text=True)
+        res = re.findall(r"^(PASSED|FAILED) \S+::(\S+)", run.stdout, re.M)
+        for status, name in res:
+            print(f"{variant}: {status} {name}")
+        mine = [s == "PASSED" for s, n in res if kernel and kernel in n]
+        want = bool(res) and (all(s == "PASSED" for s, _ in res)
+                              if kernel is None
+                              else bool(mine) and not all(mine))
+        ok &= want
+        print(f"{variant}: {'as it must' if want else 'NOT as it must'}")
+    return ok
+
 
 # run in a copy: its package first on sys.path, then the repo's root
 CHILD = """
@@ -207,7 +399,9 @@ def main() -> int:
             print("lowp_mutants: needs a CUDA device (or --cpu)",
                   file=sys.stderr)
             return 2
-    return 0 if (cpu() if args.cpu else card()) else 1
+    if args.cpu:
+        return 0 if cpu() & cpu_bwd() else 1
+    return 0 if card() & card_bwd() else 1
 
 
 if __name__ == "__main__":

@@ -82,7 +82,7 @@ def build():
     new.eabnet_tcm_chain_clock_buffer.restype = _I
     new.eabnet_tcm_chain_workspace.argtypes = [_I] * 2
     new.eabnet_tcm_chain_workspace.restype = ctypes.c_longlong
-    new.eabnet_tcm_chain_bwd_workspace.argtypes = [_I] * 6
+    new.eabnet_tcm_chain_bwd_workspace.argtypes = [_I] * 7
     new.eabnet_tcm_chain_bwd_workspace.restype = ctypes.c_longlong
     new.eabnet_tcm_chain_fwd.argtypes = [_P] * 10 + [_I] * 5 + [_P, _I, _P]
     new.eabnet_tcm_chain_fwd.restype = _I
@@ -113,7 +113,7 @@ def new_clocks(new, bwd, x, dy, w, dils, twin, geo, stream):
     err = new.eabnet_tcm_chain_clock_buffer(clk.data_ptr())
     if bwd:
         work = torch.empty(int(new.eabnet_tcm_chain_bwd_workspace(
-            b, t, D, k, p, int(twin))), device="cuda")
+            b, t, D, k, p, int(twin), 0)), device="cuda")
         dx = torch.empty_like(x)
         grads = torch.empty(sum(v.numel() for v in w), device="cuda")
         err = err or new.eabnet_tcm_chain_bwd(

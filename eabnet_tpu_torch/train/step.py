@@ -10,6 +10,15 @@ computes it, so its state maps one to one onto the JAX checkpoint
 model in training mode, where batch norms normalise with the batch's
 statistics and move their running ones (the buffers that the checkpoint
 writes as ``batch_stats``); the eval step reads them in evaluation mode.
+
+``train.compute_dtype = "bfloat16"`` is the JAX package's mixed
+precision: the features are made in float32 and cast to bf16, the float32
+parameters are cast to bf16 inside the differentiated function, all in
+one launch (so their gradients come back through the cast in float32),
+every model output is cast to float32 before the mask and the loss, and
+clipping and Adam run in float32 on float32 state. The batch norms' running statistics stay
+float32 buffers, as flax keeps ``batch_stats``. The eval step runs in
+float32, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from eabnet_tpu_torch.dsp import prepare_data
 from eabnet_tpu_torch.losses import eabnet_with_postnet_loss, frame_mask
 from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.models.eabnet import from_reference_layout
+from eabnet_tpu_torch.utils.quantize import flat_views
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root = 0)
 _COUNT_MAX = 2 ** 31 - 1         # optax's int32 count saturates here
@@ -127,13 +137,42 @@ def _valid_frames(n_samples: torch.Tensor, total_frames: int,
     return torch.clamp(frames, max=total_frames)
 
 
-def _forward_losses(model, cfg, noisy_wav, target_wav, n_samples):
+_COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _float32(tree):
+    """Every tensor of a nest of dicts, lists and tuples cast to float32."""
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float32(v) for v in tree)
+    return tree.float()
+
+
+def _cast_parameters(model: nn.Module, dtype: torch.dtype) -> dict:
+    """{name: the parameter in dtype}, all cast in one launch: the float32
+    parameters joined into one flat tensor, cast, and cut into views. The
+    join and the cut are recorded by autograd, so each parameter's
+    gradient comes back through the cast in float32."""
+    params = dict(model.named_parameters())
+    flat = torch.cat([p.reshape(-1) for p in params.values()]).to(dtype)
+    return dict(zip(params, flat_views(
+        flat, [tuple(p.shape) for p in params.values()])))
+
+
+def _forward_losses(model, cfg, noisy_wav, target_wav, n_samples,
+                    compute=torch.float32):
     noisy_wav, target_wav = _dequant(noisy_wav), _dequant(target_wav)
     if n_samples is None:
         n_samples = torch.full((noisy_wav.shape[0],), noisy_wav.shape[-1],
                                dtype=torch.int32, device=noisy_wav.device)
     noisy_stft, target_stft = prepare_data(noisy_wav, target_wav, cfg.stft)
-    out = model(noisy_stft)
+    if compute == torch.float32:
+        out = model(noisy_stft)
+    else:  # mixed precision: the casts are inside what autograd records
+        out = _float32(torch.func.functional_call(
+            model, _cast_parameters(model, compute),
+            (noisy_stft.to(compute),)))
     t = noisy_stft.shape[1]
     mask = frame_mask(_valid_frames(n_samples.to(noisy_wav.device), t, cfg,
                                     noisy_wav.shape[-1]), t)
@@ -147,8 +186,11 @@ def make_train_step(cfg: ExperimentConfig) -> Callable:
     n_samples (B,) or None) -> (state, {eabnet, postnet, final})``, the
     losses as 0-d tensors before the update. Under
     ``cfg.model.freeze_eabnet`` the gradients and the updates of the
-    ``eabnet`` parameters are zeroed; their Adam moments still decay."""
+    ``eabnet`` parameters are zeroed; their Adam moments still decay.
+    ``cfg.train.compute_dtype`` picks float32 or bf16 mixed precision
+    (module doc)."""
     frozen = "eabnet." if cfg.model.freeze_eabnet else None
+    compute = _COMPUTE[cfg.train.compute_dtype]
 
     def train_step(state: TrainState, noisy_wav, target_wav,
                    n_samples=None):
@@ -159,7 +201,7 @@ def make_train_step(cfg: ExperimentConfig) -> Callable:
             p.grad = None
         with torch.enable_grad():
             losses, _ = _forward_losses(model, cfg, noisy_wav, target_wav,
-                                        n_samples)
+                                        n_samples, compute)
             losses["final"].backward()
         grads = {n: (torch.zeros_like(p) if p.grad is None
                      or (frozen and n.startswith(frozen)) else p.grad)

@@ -20,13 +20,23 @@ a few launches, so the resident parameter bytes are the packed ones
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from eabnet_tpu_torch.weights import _KERNEL_LAYOUT, _layout, flatten_tree
+
+
+def flat_views(flat: torch.Tensor, shapes: Sequence[Tuple[int, ...]]
+               ) -> list:
+    """A flat (N,) tensor cut into consecutive views of ``shapes``: many
+    tensors cast or moved in one launch (the int8w floats here, the bf16
+    copies of the float32 parameters in ``train/step.py``); under autograd
+    each view's gradient lands in its slice."""
+    sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    return [v.view(s) for v, s in zip(torch.split(flat, sizes), shapes)]
 
 
 def _pack(w: np.ndarray) -> Dict[str, np.ndarray]:
@@ -150,7 +160,6 @@ class PackedWeights:
             self._groups.append((n_q, n_s, n_rows, width, views))
             n_q, n_s = n_q + n_rows * width, n_s + n_rows
         self._floats = [(name, tuple(v.shape)) for name, v in floats]
-        self._float_sizes = [v.numel() for _, v in floats]
 
         def flat(parts, dtype):
             return (torch.cat(parts) if parts
@@ -180,7 +189,8 @@ class PackedWeights:
             for (name, _, (axis, shape)), v in zip(views, parts):
                 v = v.view(shape)
                 out[name] = v if axis is None else v.movedim(0, axis)
-        parts = torch.split(self.floats.to(dtype), self._float_sizes)
-        for (name, shape), v in zip(self._floats, parts):
-            out[name] = v.view(shape)
+        parts = flat_views(self.floats.to(dtype),
+                           [shape for _, shape in self._floats])
+        for (name, _), v in zip(self._floats, parts):
+            out[name] = v
         return out

@@ -423,13 +423,19 @@ def snr_db(ref, est):
     return 10 * np.log10(np.sum(ref ** 2) / np.sum((ref - est) ** 2))
 
 
-def kernel_rule(out, ref16, ref32, wide=None):
+def kernel_rule(out, ref16, ref32, wide=None, spread=3.0):
     """SNR of the kernel against the plain bf16 version, and its bound: R +
-    20, or with ``wide`` (a whole TCM chain) min(R + 20, D - 3)."""
+    20, or with ``wide`` (a whole TCM chain, a backward) min(R + 20, D -
+    ``spread``), D the smallest SNR between the plain version and each of ``wide``
+    (float32-rounding probes of it that take nothing from the kernel: in
+    float64, on the CPU, on inputs that differ by float32 rounding
+    only)."""
     f = [a.float().cpu().numpy() for a in (out, ref16, ref32)]
     need = snr_db(f[2], f[1]) + 20.0
     if wide is not None:
-        need = min(need, snr_db(wide.float().cpu().numpy(), f[1]) - 3.0)
+        need = min(need, min(snr_db(w.float().cpu().numpy(), f[1]) - spread
+                             for w in (wide if isinstance(wide, tuple)
+                                       else (wide,))))
     return snr_db(f[1], f[0]), need
 
 
@@ -550,3 +556,118 @@ def test_release_lowp_on_card_matches_goldens(cuda, model, launches, dtype):
         assert snr_db(glow[f"{stage}_{dtype}"], out) >= r - 6.0, stage
         if dtype == "bfloat16":
             assert snr_db(g32[stage], out) >= r - 3.0, stage
+
+
+# bf16 training's kernels (PERF.md §2): the training forward's sequences,
+# the TCM-chain backward's recomputed trunk and each TCM's float32
+# cotangent out at R + 20 dB; every other backward output (the LSTM-BF's,
+# each TCM's weight gradients; the whole chain's at D - 6) at min(R + 20,
+# D - 3), D from plain probes that take nothing from the kernel (the plain
+# backward in float64, on the CPU, or on inputs moved by float32
+# rounding).
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [161, 1127])
+def test_lstm_bf16_train_kernels_match_plain_on_card(cuda, release_model, l):
+    from eabnet_tpu_torch.kernels import lstm_bf as K
+
+    r1, r2 = release_model.eabnet.bf_map.rnn1, release_model.eabnet.bf_map.rnn2
+    g = torch.Generator(device=cuda).manual_seed(100 + l)
+    x = torch.randn((601, l, 64), generator=g, device=cuda)
+    dy16 = torch.randn((601, l, 64), generator=g, device=cuda).to(BF16)
+    with torch.no_grad():
+        xw1 = (x @ r1.w_ih + (r1.b_ih + r1.b_hh)).contiguous()
+        a32 = (xw1, r1.w_hh, r2.w_ih, r2.w_hh, r2.b_ih + r2.b_hh)
+        a16 = tuple(a.to(BF16).contiguous() for a in a32)
+        states = K._launch_fwd(*a16, states=True)
+        assert all(s.dtype == BF16 for s in states)
+        ref32 = K.double_lstm_states_reference(*a32)
+        for s, r16, r32 in zip(states, K.double_lstm_states_reference(*a16),
+                               ref32):
+            got, need = kernel_rule(s, r16, r32)
+            assert got >= need, (got, need)
+        grads = K._launch_bwd(a16[0], dy16, *states, *a16[1:])
+        again = K._launch_bwd(a16[0], dy16, *states, *a16[1:])
+        p16 = K.double_lstm_bwd_reference(a16[0], dy16, *states, *a16[1:])
+        p32 = K.double_lstm_bwd_reference(xw1, dy16.float(), *ref32,
+                                          *a32[1:])
+        p64 = K.double_lstm_bwd_reference(a16[0], dy16, *states, *a16[1:],
+                                          compute=torch.float64)
+        pown = K.double_lstm_bwd_reference(
+            a16[0], dy16, *K.double_lstm_states_reference(*a16), *a16[1:])
+    for i, (a, b) in enumerate(zip(grads, again)):
+        assert a.dtype == BF16 and torch.equal(a, b), i
+        got, need = kernel_rule(a, p16[i], p32[i], (p64[i], pown[i]))
+        assert got >= need, (i, got, need)
+    # under autograd the bf16 path goes through both kernels
+    xg = a16[0].clone().requires_grad_()
+    before = (double_lstm.launches, double_lstm.bwd_launches)
+    with torch.enable_grad():
+        double_lstm(xg, *a16[1:]).backward(dy16)
+    assert (double_lstm.launches - before[0],
+            double_lstm.bwd_launches - before[1]) == (1, 1)
+    assert torch.equal(xg.grad, grads[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("which", ["twin", "single"])
+def test_tcm_bf16_bwd_kernel_matches_plain_on_card(cuda, release_model, which,
+                                                   b):
+    from eabnet_tpu_torch.kernels import tcm_chain as K
+
+    group = (release_model.eabnet.stcn_0 if which == "twin"
+             else release_model.postnet.gag_0.glance.tcn_0)
+    dils, twin = group.dilations, group.twin_gate
+    g = torch.Generator(device=cuda).manual_seed(200 + b)
+    x16 = torch.randn((b, 601, 256), generator=g, device=cuda).to(BF16)
+    dy16 = torch.randn((b, 601, 256), generator=g, device=cuda).to(BF16)
+    with torch.no_grad():
+        w32 = tuple(w.detach() for w in group.stacked_weights())
+        w16 = tuple(w.to(BF16).contiguous() for w in w32)
+        dx, dw, acts = K._launch_bwd(x16, dy16, w16, dils, twin,
+                                     activations=True)
+        again = K._launch_bwd(x16, dy16, w16, dils, twin)
+        assert torch.equal(dx, again[0]) and all(
+            torch.equal(a, c) for a, c in zip(dw, again[1]))
+        trunks = [x16.float()] + list(acts["x"])
+        cots = list(acts["dy"]) + [dy16.float()]
+        outs = [dx] + list(acts["dy"])
+        for j in range(len(dils)):
+            wj = [tuple(w[j:j + 1] for w in ws) for ws in (w16, w32)]
+            # the recomputed trunk after TCM j, on the kernel's trunk in
+            if j + 1 < len(dils):
+                t16, t32 = (K.tcm_chain_reference(trunks[j], w, dils[j:j + 1],
+                                                  twin) for w in wj)
+                got, need = kernel_rule(trunks[j + 1], t16, t32)
+                assert got >= need, ("trunk", j, got, need)
+            # TCM j's float32 cotangent out and its weight gradients, on
+            # the kernel's trunk and cotangent in
+            p16, p32 = (K.tcm_chain_bwd_reference(
+                trunks[j], cots[j], w, dils[j:j + 1], twin) for w in wj)
+            probes = K.tcm_chain_bwd_probes(trunks[j], cots[j], wj[0],
+                                            dils[j:j + 1], twin, seed=j)
+            got, need = kernel_rule(outs[j], p16[0].to(outs[j].dtype),
+                                    p32[0])
+            assert got >= need, (j, got, need)
+            for i, (a, r16, r32) in enumerate(zip(dw, p16[1], p32[1])):
+                if not r16.float().abs().max().item():
+                    assert not a[j].float().abs().max().item(), (j, i)
+                    continue
+                got, need = kernel_rule(a[j:j + 1], r16, r32,
+                                        tuple(q[1][i] for q in probes))
+                assert got >= need, (j, i, got, need)
+        c16 = K.tcm_chain_bwd_reference(x16, dy16, w16, dils, twin)
+        c32 = K.tcm_chain_bwd_reference(x16.float(), dy16.float(), w32, dils,
+                                        twin)
+        probes = K.tcm_chain_bwd_probes(x16, dy16, w16, dils, twin)
+    for i, (a, r16, r32, *wide) in enumerate(zip(
+            (dx,) + dw, (c16[0],) + c16[1], (c32[0],) + c32[1],
+            *(((q[0],) + q[1]) for q in probes))):
+        assert a.dtype == BF16
+        if not r16.float().abs().max().item():  # single: wr, table row 1
+            assert not a.float().abs().max().item(), i
+            continue
+        # the whole backward chain at D - 6 (chip_smoke's
+        # LOWP_CHAIN_BWD_SPREAD_DB)
+        got, need = kernel_rule(a, r16, r32, tuple(wide), spread=6.0)
+        assert got >= need, (i, got, need)

@@ -261,6 +261,12 @@ def test_bf16_on_cpu_takes_the_plain_path_and_counts_nothing():
 
 
 def test_bf16_refuses_mixed_dtypes_and_autograd():
+    """Mixed dtypes raise; bf16 autograd on the CPU takes the plain bf16
+    backwards (not autograd of the plain forward)."""
+    from eabnet_tpu_torch.kernels.lstm_bf import (
+        double_lstm_bwd_reference, double_lstm_states_reference)
+    from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain_bwd_reference
+
     args = [torch.from_numpy(a).to(BF16) for a in lstm_inputs(t=4, lanes=2)]
     x, _, tg = tcm_group(*CASES[0], seed=5)
     w16 = tuple(w.to(BF16) for w in tg.stacked_weights())
@@ -273,11 +279,21 @@ def test_bf16_refuses_mixed_dtypes_and_autograd():
         with pytest.raises(TypeError):
             tcm_chain(x16.half(), tuple(w.half() for w in w16), CASES[0][2],
                       True)
-    # the bf16 backward is not ported: a gradient request raises
-    with pytest.raises(TypeError, match="autograd"):
-        double_lstm(args[0].clone().requires_grad_(), *args[1:])
-    with pytest.raises(TypeError, match="autograd"):
-        tcm_chain(x16.clone().requires_grad_(), w16, CASES[0][2], True)
+    # a gradient request takes the plain bf16 backward
+    xw1 = args[0].clone().requires_grad_()
+    dy = torch.ones((4, 2, 64), dtype=BF16)
+    (got,) = torch.autograd.grad(double_lstm(xw1, *args[1:]), xw1, dy)
+    with torch.no_grad():
+        want = double_lstm_bwd_reference(
+            args[0], dy, *double_lstm_states_reference(*args), *args[1:])[0]
+    assert got.dtype == BF16 and torch.equal(got, want)
+    xg = x16.clone().requires_grad_()
+    dyc = torch.ones_like(x16)
+    (got,) = torch.autograd.grad(tcm_chain(xg, w16, CASES[0][2], True), xg,
+                                 dyc)
+    with torch.no_grad():
+        want = tcm_chain_bwd_reference(x16, dyc, w16, CASES[0][2], True)[0]
+    assert got.dtype == BF16 and torch.equal(got, want)
 
 
 # ----------------------------------------------------------- model level

@@ -119,20 +119,24 @@ def test_cli_overrides_match_jax():
 
 def test_cli_train_set_trains_a_bfloat16_config(tmp_path, capsys):
     """A config that records bfloat16 compute (as the released ones do)
-    trains in float32 through --set."""
+    trains in bf16 mixed precision as recorded, and in float32 through
+    --set."""
     from eabnet_tpu_torch.cli import train as cli
 
-    cfg = tiny_cfg(tmp_path, compute_dtype="bfloat16")
+    cfg = tiny_cfg(tmp_path / "bf16", compute_dtype="bfloat16")
     path = tmp_path / "exp.json"
     path.write_text(cfg.to_json())
-    with pytest.raises(NotImplementedError):
-        cli.main(["--config", str(path), "--max-steps", "1", "--device",
-                  "cpu"])
+    cli.main(["--config", str(path), "--max-steps", "1", "--device", "cpu"])
+    assert "iter 1 epoch 0" in capsys.readouterr().out
+    saved = ExperimentConfig.load(str(tmp_path / "bf16" / "config.json"))
+    assert saved.train.compute_dtype == "bfloat16"
     cli.main(["--config", str(path), "--max-steps", "1", "--device", "cpu",
               "--set", "train.compute_dtype=float32", "--set",
-              "train.lr=1e-4"])
+              "train.lr=1e-4", "--set",
+              f"train.checkpoint_dir={tmp_path / 'f32' / 'ckpt'}", "--set",
+              f"train.exp_root={tmp_path / 'f32'}"])
     assert "iter 1 epoch 0" in capsys.readouterr().out
-    saved = ExperimentConfig.load(str(tmp_path / "config.json"))
+    saved = ExperimentConfig.load(str(tmp_path / "f32" / "config.json"))
     assert (saved.train.compute_dtype, saved.train.lr) == ("float32", 1e-4)
 
 
@@ -183,9 +187,11 @@ def test_train_step_dequantizes_int16():
     {"model": {"gagnet": {"norm_type": "BN"}}},
 ], ids=["bf16", "mesh", "device_mix", "bn"])
 def test_training_guard_refuses(tmp_path, change):
-    """The guard refuses bf16 compute, meshes and on-device synthesis; a
-    batch-norm model passes it and trains: one step on the CPU moves the
-    running statistics, which the checkpoint carries as batch_stats."""
+    """The guard refuses meshes, on-device synthesis and compute dtypes
+    other than float32 and bfloat16; a bf16 config and a batch-norm model
+    pass it and train: one step on the CPU, and for the batch norm its
+    running statistics moved, which the checkpoint carries as
+    batch_stats."""
     d = json.loads(tiny_cfg(tmp_path).to_json())
     for section, kv in change.items():
         for k, v in kv.items():
@@ -194,17 +200,24 @@ def test_training_guard_refuses(tmp_path, change):
             else:
                 d[section][k] = v
     cfg = ExperimentConfig.from_dict(d)
-    if cfg.model.gagnet.norm_type != "BN":
+    bf16 = cfg.train.compute_dtype == "bfloat16"
+    if cfg.model.gagnet.norm_type != "BN" and not bf16:
         with pytest.raises(NotImplementedError):
             require_training(cfg)
         return
     require_training(cfg)
+    if bf16:
+        d["train"]["compute_dtype"] = "float16"
+        with pytest.raises(NotImplementedError):
+            require_training(ExperimentConfig.from_dict(d))
     from eabnet_tpu_torch.checkpoint import msgpack_restore
 
     hist = train(cfg, max_steps=1, device="cpu", tensorboard=False)
     assert [h["step"] for h in hist] == [1]
     assert all(np.isfinite(hist[0][k]) for k in ("eabnet", "postnet",
                                                  "final"))
+    if bf16:
+        return
     with open(os.path.join(cfg.train.checkpoint_dir, "1.ckpt"), "rb") as f:
         stats = msgpack_restore(f.read())["state"]["batch_stats"]
     norm = stats["postnet"]["en"]["unet_0"]["in_norm"]["norm"]
