@@ -70,6 +70,28 @@ Phases, each announced with its elapsed seconds:
    and mode: the mean SI-SDR gain within 0.5 dB of that model's float32
    gain in this run, wall, RTF, one profiled run's idle share, the peak
    device memory and the resident parameter bytes beside float32's.
+5d. eval: both released models scored on the card as release/REPORT.md
+   and release/REPORT_CLN.md were: the port's evaluate_dataset (PESQ wb
+   and nb, STOI, ESTOI, SI-SDR/SIR/SAR, SegSNR, LSD; host code, in
+   worker processes) with Enhancer(pad_mode="reference"), the
+   featurization those records used (no zero tail). (a) The noisy
+   reference mic of release/val_set and release/val_set_large: the
+   reports' noisy rows, means and 95 % CIs, at their printed precision.
+   (b) composed_9mic on release/val_set_large, esti0 and esti, per item
+   against the JAX package's scores (release/refeval_oursdec_*.csv):
+   within 1e-3 (PESQ, dB metrics, LSD) and 1e-4 (STOI, ESTOI), the
+   largest difference per metric printed with its item. (c)
+   composed_9mic on release/val_set and (d) eabnet_9mic_cln on
+   release/val_set_large: every mean within 0.001 of the report's, the
+   esti - esti0 margins within 0.002. (e) cli.test as a user runs it
+   (default padding) for both models and stages on release/val_set, its
+   CSV per item against the JAX package's cli.test
+   (tests/golden/torch_port_eval_val_set.npz) at (b)'s limits. (f) The
+   launches of one forward by C entry ({lstm_bf_fwd 1, tcm_chain_fwd 21}
+   for composed_9mic, {lstm_bf_fwd 1} for the cLN model), the wall, items
+   scored per second, host seconds enhancing against scoring. Then
+   composed_9mic in bf16 and int8w on release/val_set (esti), means
+   beside float32's, no limit.
 6. backward (the train phase, part 1): each backward kernel, and the
    LSTM-BF training forward that saves its states, against its plain
    version on the card at the training shapes (T = 601; LSTM L = 1,127
@@ -236,6 +258,21 @@ CLN_BF16_STEPS = 2  # eabnet_9mic_cln bf16 steps: launches and time
 # bf16 rounding in ~0.1% of entries (~78 dB); one more rounding of the
 # partial sums anywhere costs about a bf16 rounding's own ~59 dB
 LOWP_SUM_DB = 68.0
+# the eval phase: both released models scored as the release reports were
+VAL_LARGE = "release/val_set_large"
+EVAL_GOLDEN = "tests/golden/torch_port_eval_val_set.npz"
+EVAL_DIR = "build/chip_smoke_eval"  # cli.test's reports
+EVAL_KEYS = ("si_sdr", "pesq", "nb_pesq", "stoi", "estoi", "seg_snr", "lsd")
+# a score against the JAX package's, per item: the port's float32 output
+# lies far inside the 40 dB golden rule and the metric code is the same
+SCORE_TOL = {"pesq": 1e-3, "nb_pesq": 1e-3, "stoi": 1e-4, "estoi": 1e-4,
+             "si_sdr": 1e-3, "si_sir": 1e-3, "si_sar": 1e-3, "seg_snr": 1e-3,
+             "lsd": 1e-3}
+# a mean against a report's: one unit of its last digit; esti - esti0
+# margins: two
+EVAL_MEAN_TOL, EVAL_MARGIN_TOL = 0.001, 0.002
+EVAL_SHARD = 4  # items per scoring job of the worker processes
+EVAL_NUDGES = 16  # one-ulp nudges of an estimate scored outside its limit
 
 T0 = time.perf_counter()
 
@@ -1584,6 +1621,400 @@ def lowp_serving(exp: str, golden_path: str, want, mode: str, f32_item,
                 idle=prof["idle"] if prof else None)
 
 
+# ------------------------------------------------------------------ eval
+def read_set(root: str):
+    """(names, noisy (M, N) per item, clean per item) of an offline val
+    dir, in the order the datasets list it."""
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    names = sorted(os.listdir(os.path.join(root, "clean")))
+    noisy = [read_wav(os.path.join(root, "noisy", n))[1] for n in names]
+    clean = [read_wav(os.path.join(root, "clean", n))[1] for n in names]
+    return names, noisy, clean
+
+
+def score_shard(names, mixes, cleans, estis, sr: int):
+    """The port's evaluate_dataset over estimates made beforehand, in a
+    worker process (the metrics are host code): rows and seconds."""
+    from eabnet_tpu_torch.eval import evaluate_dataset
+
+    t1 = time.perf_counter()
+    estimates = iter(estis)
+    _, rows = evaluate_dataset(
+        lambda noisy: next(estimates),
+        ((m[None], c) for m, c in zip(mixes, cleans)), sr=sr, names=names)
+    return rows, time.perf_counter() - t1
+
+
+class Scoring:
+    """Items scored by a pool of worker processes, EVAL_SHARD items a job,
+    collected per (set, model, stage) key in item order."""
+
+    def __init__(self, pool, sr: int):
+        self.pool, self.sr, self.jobs = pool, sr, {}
+
+    def submit(self, key, names, noisy, clean, estis) -> None:
+        self.jobs[key] = [self.pool.submit(
+            score_shard, names[i:i + EVAL_SHARD],
+            [x[0] for x in noisy[i:i + EVAL_SHARD]], clean[i:i + EVAL_SHARD],
+            estis[i:i + EVAL_SHARD], self.sr)
+            for i in range(0, len(names), EVAL_SHARD)]
+
+    def collect(self):
+        """{key: (accumulator, rows)} and the workers' seconds in all."""
+        from eabnet_tpu_torch.eval.harness import METRICS
+        from eabnet_tpu_torch.eval.metrics import MetricAccumulator
+
+        out, seconds = {}, 0.0
+        for key, futures in self.jobs.items():
+            acc, rows = MetricAccumulator(METRICS), []
+            for f in futures:
+                part, s = f.result()
+                seconds += s
+                rows += part
+            for r in rows:
+                acc.update({m: r[m] for m in METRICS if m in r})
+            out[key] = (acc, rows)
+        return out, seconds
+
+
+def entries_since(before: dict) -> dict:
+    """Launches by C entry since ``before`` (a read_entries())."""
+    now = read_entries()
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n - before.get(k, 0)}
+
+
+def enhance_set(enh, noisy, label: str, want=None):
+    """Every item through ``enh`` on the card, one forward each; the
+    launches by C entry of the first forward must equal ``want``. Returns
+    the estimates and the seconds spent."""
+    outs, seconds = [], 0.0
+    for i, x in enumerate(noisy):
+        before = read_entries()
+        t1 = time.perf_counter()
+        outs.append(enh(x))  # returns host arrays: the card has finished
+        seconds += time.perf_counter() - t1
+        if i == 0 and want is not None:
+            got = entries_since(before)
+            say(f"eval (f) {label}: launches in one forward by C entry "
+                f"{got}")
+            require(got == want, f"eval (f) {label}: {want} per forward, "
+                    "no bf16 or backward entry")
+    return outs, seconds
+
+
+def release_report(path: str) -> dict:
+    """A release report's tables: {set: {"stages": {stage: {metric:
+    "mean ± ci"}}, "margins": {metric: float}, "n": items}}."""
+    import re
+
+    out = {}
+    for block in open(path).read().split("\n## ")[1:]:
+        lines = block.splitlines()
+        name, n = re.match(r"(\S+) \((\d+) items\)", lines[0]).groups()
+        head = next(x for x in lines if x.startswith("| stage |"))
+        keys = [c.strip() for c in head.strip().strip("|").split("|")][1:]
+        stages = {}
+        for x in lines:
+            if x.startswith("| ") and not x.startswith("| stage |"):
+                cells = [c.strip() for c in x.strip().strip("|").split("|")]
+                stages[cells[0]] = dict(zip(keys, cells[1:]))
+        m = next(x for x in lines if x.startswith("esti − esti0 margins:"))
+        margins = {k: float(v) for k, v in (
+            p.split() for p in m.split(":", 1)[1].split(","))}
+        out[name] = dict(stages=stages, margins=margins, n=int(n))
+    return out
+
+
+def report_row(acc) -> dict:
+    """{metric: "mean ± ci"} as the release reports print a stage."""
+    return {k: "%.3f ± %.3f" % acc.mean_ci(k) for k in EVAL_KEYS}
+
+
+def check_means(label: str, accs: dict, report: dict) -> list:
+    """Each stage's means within EVAL_MEAN_TOL of the report's printed
+    ones, the esti - esti0 margins within EVAL_MARGIN_TOL; returns the
+    failed checks."""
+    rep = report["stages"]
+    bad = []
+    for stage, acc in accs.items():
+        row = report_row(acc)
+        say(f"eval {label} {stage}: | {stage} | "
+            + " | ".join(row[k] for k in EVAL_KEYS) + " |")
+        say(f"eval {label} {stage}: report | {stage} | "
+            + " | ".join(rep[stage][k] for k in EVAL_KEYS) + " |")
+        for k in EVAL_KEYS:
+            d = acc.mean_ci(k)[0] - float(rep[stage][k].split(" ± ")[0])
+            if not abs(d) <= EVAL_MEAN_TOL:
+                bad.append(f"{stage} {k} {d:+.4f}")
+    margins = {k: accs["esti"].mean_ci(k)[0] - accs["esti0"].mean_ci(k)[0]
+               for k in EVAL_KEYS}
+    say(f"eval {label}: esti - esti0 margins " + ", ".join(
+        f"{k} {margins[k]:+.4f} (report {report['margins'][k]:+.4f})"
+        for k in EVAL_KEYS))
+    bad += [f"margin {k} {margins[k] - report['margins'][k]:+.4f}"
+            for k in EVAL_KEYS
+            if not abs(margins[k] - report["margins"][k]) <= EVAL_MARGIN_TOL]
+    what = (f"eval {label}: every mean within {EVAL_MEAN_TOL:g} of the "
+            f"report's, every margin within {EVAL_MARGIN_TOL:g}")
+    say(("FAIL " if bad else "PASS ") + what + (f" (outside: {bad})"
+                                                if bad else ""))
+    return [what] if bad else []
+
+
+def nudged_scores(clean, mix, esti, metric: str) -> list:
+    """``metric`` of ``esti`` moved by one float32 ulp (each sample times
+    1 + eps * N(0, 1), seeded), EVAL_NUDGES times: the scores float32
+    rounding of the estimate alone can give."""
+    import numpy as np
+
+    from eabnet_tpu_torch.eval.harness import cal_single_metrics
+
+    rng = np.random.default_rng(0)
+    eps = float(np.finfo(np.float32).eps)
+    return [cal_single_metrics(clean, mix, (esti * (
+        1 + eps * rng.standard_normal(esti.shape))).astype(np.float32))[
+            metric] for _ in range(EVAL_NUDGES)]
+
+
+def check_items(label: str, rows: list, ref: dict, item) -> list:
+    """Per item against ``ref`` ({metric: values in item order}) at
+    SCORE_TOL: the largest |difference| per metric and its item, and every
+    item outside a limit with both values. Such an item passes only if a
+    one-ulp nudge of the port's own estimate (``item(i)`` -> clean,
+    mixture, estimate) scores within the limit of the reference: the
+    metric is discontinuous there at float32 rounding (PERF.md §2).
+    Returns the failed checks."""
+    bad, worst, jumps = [], {}, []
+    for i, row in enumerate(rows):
+        for m, tol in SCORE_TOL.items():
+            want = float(ref[m][i])
+            d = abs(row[m] - want)
+            if d >= worst.get(m, (-1.0, ""))[0]:
+                worst[m] = (d, row["filename"])
+            if d <= tol:
+                continue
+            nudged = nudged_scores(*item(i), m)
+            near = min(abs(v - want) for v in nudged)
+            seen = sorted(set(round(v, 6) for v in nudged))
+            say(f"eval {label}: outside its limit: {row['filename']} {m}: "
+                f"port {row[m]!r}, JAX {want!r}; one-ulp nudges of the "
+                f"port's estimate score {seen}, nearest {near:.2e} from "
+                "JAX's")
+            (jumps if near <= tol else bad).append(f"{row['filename']} {m}")
+    say(f"eval {label}: largest |difference| per metric (item) " + ", ".join(
+        f"{m} {d:.2e} ({name})" for m, (d, name) in worst.items()))
+    what = (f"eval {label}: {len(rows)} items, every score within 1e-3 "
+            "(PESQ, dB metrics, LSD) / 1e-4 (STOI, ESTOI) of JAX's, or "
+            "within it of a one-ulp nudge of the estimate")
+    say(("FAIL " if bad else "PASS ") + what + (
+        f" (at a discontinuity: {jumps})" if jumps else "")
+        + (f" (outside: {bad})" if bad else ""))
+    return [what] if bad else []
+
+
+def eval_phase(smi: str) -> dict:
+    """Both released models scored on the card as the release reports were
+    (module doc, 5d): (a) to (f), then composed_9mic in bf16 and int8w."""
+    import concurrent.futures
+    import csv
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
+    from eabnet_tpu_torch.cli import test as cli_test
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.inference import Enhancer
+
+    t_phase = time.perf_counter()
+    sets = {VAL: read_set(VAL), VAL_LARGE: read_set(VAL_LARGE)}
+    reports = {EXP: release_report("release/REPORT.md"),
+               EXP_CLN: release_report("release/REPORT_CLN.md")}
+    for exp, rep in reports.items():
+        for name, table in rep.items():
+            require(len(sets[name][0]) == table["n"], f"eval: {name} holds "
+                    f"the {table['n']} items of {exp}'s report")
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        scoring = Scoring(pool, 16000)
+        for name, (names, noisy, clean) in sets.items():  # (a): no model
+            scoring.submit(("noisy", name), names, noisy, clean,
+                           [x[0] for x in noisy])
+        zero_launches()
+        enhance_s, forwards, kept = 0.0, 0, {}
+        want = {EXP: {"lstm_bf_fwd": 1, "tcm_chain_fwd": 21},
+                EXP_CLN: {"lstm_bf_fwd": 1}}
+        plan = {EXP: (VAL_LARGE, VAL), EXP_CLN: (VAL_LARGE,)}  # (b)-(d)
+        for exp, set_names in plan.items():
+            cfg = ExperimentConfig.load(os.path.join(exp, "config.json"))
+            params = load_params(latest_checkpoint(exp))
+            enh = Enhancer(cfg, params, pad_mode="reference", device="cuda")
+            for stage in ("esti0", "esti"):
+                enh.output = stage
+                for name in set_names:
+                    names, noisy, clean = sets[name]
+                    label = f"{os.path.basename(exp)} {stage} {name}"
+                    estis, s = enhance_set(
+                        enh, noisy, label,
+                        want[exp] if name == VAL_LARGE else None)
+                    enhance_s += s
+                    forwards += len(noisy)
+                    scoring.submit((exp, stage, name), names, noisy, clean,
+                                   estis)
+                    if exp == EXP and name == VAL_LARGE:
+                        kept[stage] = estis
+            del enh
+        # the padding the records did not use: item 00000 of
+        # release/val_set_large with the default zero tail, stage esti
+        names, noisy, clean = sets[VAL_LARGE]
+        estis, s = enhance_set(Enhancer(
+            ExperimentConfig.load(os.path.join(EXP, "config.json")),
+            load_params(latest_checkpoint(EXP)), device="cuda"), noisy[:1],
+            "composed_9mic esti tail")
+        enhance_s, forwards = enhance_s + s, forwards + 1
+        scoring.submit(("tail",), names[:1], noisy[:1], clean[:1], estis)
+        # (e) cli.test as a user runs it (default padding, on the card),
+        # while the workers score the rest
+        os.makedirs(EVAL_DIR, exist_ok=True)
+        golden = np.load(EVAL_GOLDEN)
+        cli_rows, t_cli = {}, time.perf_counter()
+        for exp in (EXP, EXP_CLN):
+            model = os.path.basename(exp)
+            for stage in ("esti0", "esti"):
+                prefix = os.path.join(EVAL_DIR, f"{model}_{stage}")
+                cli_test.main([
+                    "--config", os.path.join(exp, "config.json"),
+                    "--set", f"data.val_set={VAL}",
+                    "--set", f"data.speech_root={VAL}",
+                    "--ckpt", latest_checkpoint(exp), "--output", stage,
+                    "--out-prefix", prefix])
+                with open(prefix + ".csv") as f:
+                    cli_rows[model, stage] = [
+                        {k: (v if k == "filename" else float(v))
+                         for k, v in r.items()} for r in csv.DictReader(f)]
+        t_cli = time.perf_counter() - t_cli
+        eval_entries = read_entries()
+        eval_wall = time.perf_counter() - t_phase
+        # composed_9mic in bf16 and int8w on release/val_set, stage esti:
+        # a measurement beside float32's, no limit
+        zero_launches()
+        cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
+        params = load_params(latest_checkpoint(EXP))
+        names, noisy, clean = sets[VAL]
+        for mode in LOWP_MODES:
+            enh = Enhancer(cfg, params, output="esti", compute_dtype=mode,
+                           pad_mode="reference", device="cuda")
+            estis, _ = enhance_set(enh, noisy, f"composed_9mic {mode}")
+            scoring.submit((mode,), names, noisy, clean, estis)
+            del enh
+        lowp_entries = read_entries()
+        torch.cuda.empty_cache()
+        t_wait = time.perf_counter()
+        scored, score_s = scoring.collect()
+        t_wait = time.perf_counter() - t_wait
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    failed = []  # every check runs and prints before the phase fails
+
+    def cli_item(model: str, stage: str):
+        """Item i of release/val_set as cli.test enhanced it (default
+        padding), for nudging a score outside its limit."""
+        exp = f"release/{model}"
+        cfg = ExperimentConfig.load(os.path.join(exp, "config.json"))
+        enh = Enhancer(cfg, load_params(latest_checkpoint(exp)),
+                       output=stage, device="cuda")
+        names, noisy, clean = sets[VAL]
+        return lambda i: (clean[i], noisy[i][0], enh(noisy[i]))
+
+    # (a) the metric port alone: the noisy rows, digit for digit
+    for name in (VAL, VAL_LARGE):
+        acc, _ = scored["noisy", name]
+        row = report_row(acc)
+        say(f"eval (a) {name}: | noisy | "
+            + " | ".join(row[k] for k in EVAL_KEYS) + " |")
+        for exp, rep in reports.items():
+            if name in rep:
+                want_row = rep[name]["stages"]["noisy"]
+                what = (f"eval (a) {name}: the noisy row of {exp}'s "
+                        "report, means and CIs at 3 decimals")
+                say(("PASS " if row == want_row else "FAIL ") + what)
+                failed += [] if row == want_row else [what]
+    # (b) composed_9mic per item against the JAX package's CSVs
+    for stage in ("esti0", "esti"):
+        with open(f"release/refeval_oursdec_{stage}.csv") as f:
+            ref_rows = list(csv.DictReader(f))
+        _, rows = scored[EXP, stage, VAL_LARGE]
+        require([r["filename"] for r in rows]
+                == [r["item"] + ".wav" for r in ref_rows],
+                f"eval (b) {stage}: the CSV's items in order")
+        names, noisy, clean = sets[VAL_LARGE]
+        failed += check_items(
+            f"(b) composed_9mic {stage} {VAL_LARGE}", rows,
+            {m: [r[m] for r in ref_rows] for m in SCORE_TOL},
+            lambda i: (clean[i], noisy[i][0], kept[stage][i]))
+    tail, ref0 = scored["tail",][1][0], scored[EXP, "esti", VAL_LARGE][1][0]
+    say(f"eval padding: composed_9mic esti {ref0['filename']} of "
+        f"{VAL_LARGE}: SI-SDR {ref0['si_sdr']:.6f} dB, PESQ "
+        f"{ref0['pesq']:.6f} with no tail (the records' featurization); "
+        f"{tail['si_sdr']:.6f} dB, {tail['pesq']:.6f} with the default "
+        "zero tail")
+    # (c), (d): means against the reports' tables
+    for exp, name, tag in ((EXP, VAL, "(c)"), (EXP, VAL_LARGE, "(b)"),
+                           (EXP_CLN, VAL_LARGE, "(d)")):
+        failed += check_means(
+            f"{tag} {os.path.basename(exp)} {name}",
+            {s: scored[exp, s, name][0] for s in ("esti0", "esti")},
+            reports[exp][name])
+    # (e) cli.test against the JAX package's cli.test
+    for (model, stage), rows in cli_rows.items():
+        key = f"{model}/{stage}/"
+        require([r["filename"] for r in rows]
+                == list(golden[key + "filename"]),
+                f"eval (e) {model} {stage}: the golden's items")
+        failed += check_items(f"(e) cli.test {model} {stage}", rows,
+                              {m: golden[key + m] for m in SCORE_TOL},
+                              lambda i: cli_item(model, stage)(i))
+    # bf16 and int8w beside float32 (release/val_set, esti, no tail)
+    f32 = report_row(scored[EXP, "esti", VAL][0])
+    say("eval lowp composed_9mic esti release/val_set: float32 | "
+        + " | ".join(f32[k] for k in EVAL_KEYS) + " |")
+    lowp = {}
+    for mode in LOWP_MODES:
+        acc = scored[mode,][0]
+        row = report_row(acc)
+        say(f"eval lowp composed_9mic esti release/val_set: {mode} | "
+            + " | ".join(row[k] for k in EVAL_KEYS) + " |")
+        lowp[mode] = {k: acc.mean_ci(k)[0] for k in EVAL_KEYS}
+    say(f"eval lowp: launches by C entry over the 14 forwards "
+        f"{lowp_entries}")
+    # (f) time
+    n_scored = sum(len(rows) for _, rows in scored.values()) + sum(
+        len(r) for r in cli_rows.values())
+    wall = time.perf_counter() - t_phase
+    say(f"eval (f): launches by C entry over the phase's float32 forwards "
+        f"({forwards} items + cli.test's 28) {eval_entries}")
+    say(f"eval (f): wall {wall:.1f} s ({eval_wall:.1f} s to the end of the "
+        f"float32 forwards and cli.test; waiting on the scores after them "
+        f"{t_wait:.1f} s); {n_scored} items scored, "
+        f"{n_scored / wall:.2f} items/s; host seconds enhancing "
+        f"{enhance_s:.1f} ({forwards} forwards, "
+        f"{1e3 * enhance_s / forwards:.1f} ms each), scoring {score_s:.1f} "
+        f"in {workers} worker processes; cli.test x 4 (28 forwards and "
+        f"scorings in this process) {t_cli:.1f} s; on {smi}")
+    require(not failed, f"eval: every check of (a) to (e) (failed: "
+            f"{failed})")
+    return dict(entries=eval_entries, lowp_entries=lowp_entries, wall=wall,
+                enhance_s=enhance_s, score_s=score_s, cli_s=t_cli,
+                workers=workers, n_scored=n_scored, lowp=lowp,
+                items_per_s=n_scored / wall)
+
+
 # ---------------------------------------------------------- bf16 training
 def lstm_train_lowp_case(bf_map, lanes: int, t: int, seed: int) -> dict:
     """The bf16 LSTM-BF training forward and backward kernels against their
@@ -2134,6 +2565,9 @@ def main() -> int:
                     exp, golden, want, mode, *f32_runs[exp], smi)
         say(f"lowp: phase {time.perf_counter() - t_phase:.1f} s")
 
+    with Phase("eval"):
+        evaluated = eval_phase(smi)
+
     with Phase("backward"):
         # the train phase, part 1: the backward kernels against their
         # plain versions at the training shapes (T = 601: one 6-s item
@@ -2386,6 +2820,9 @@ def main() -> int:
     record["train_bf16"] = {f: trained16[f] for f in (
         "step_s", "items_s", "rule", "peak_bytes", "cln_step_s")}
     record["train_bf16"]["f32_step_s"] = trained["step_s"]
+    record["eval"] = {f: evaluated[f] for f in (
+        "wall", "enhance_s", "score_s", "cli_s", "workers", "n_scored",
+        "items_per_s", "lowp")}
     record["lowp"] = {p: {f: v[f] for f in (
         "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
         "idle", "item")} for p, v in lowp.items()}
@@ -2397,6 +2834,8 @@ def main() -> int:
     paths = {"slice": main_entries, "cln": cln_entries,
              "stream": streamed["entries"], "train": trained["entries"],
              **{p: v["entries"] for p, v in lowp.items()},
+             "eval": evaluated["entries"],
+             "eval lowp": evaluated["lowp_entries"],
              "train_bf16": trained16["entries"],
              "train_bf16_cln": trained16["cln_entries"]}
     for k in record["kernels"]:

@@ -246,13 +246,19 @@ def write_atomic(path: str, data: bytes) -> None:
             os.unlink(tmp)
 
 
-def load_params(path: str) -> dict:
+def load_params(path: str, model_cfg=None) -> dict:
     """The flax param tree ({"eabnet": ..., "postnet": ...}) of a
-    ``.params`` release artifact or a full ``.ckpt`` training checkpoint."""
+    ``.params`` release artifact, a full ``.ckpt`` training checkpoint or a
+    reference ``.pth`` checkpoint; a ``.pth`` is converted for the
+    ``ComposedConfig`` ``model_cfg`` (``utils/convert_torch.py``)."""
     if path.endswith(".pth"):
-        raise NotImplementedError(
-            "reference .pth checkpoints are not read by this slice of the "
-            "port; convert them with the JAX package first")
+        if model_cfg is None:
+            raise ValueError(f"{path}: a reference .pth checkpoint is "
+                             "converted for a model config; pass model_cfg")
+        from eabnet_tpu_torch.utils.convert_torch import \
+            load_torch_checkpoint
+
+        return load_torch_checkpoint(path, model_cfg)["params"]
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
     if "state" in tree:  # full training checkpoint
@@ -262,9 +268,8 @@ def load_params(path: str) -> dict:
 
 def latest_checkpoint(directory: str) -> Optional[str]:
     """Highest-iteration checkpoint in the directory, ranked as the JAX
-    package ranks them: ``<iter>.ckpt``, reference ``<iter>.pth`` (which
-    this port cannot read; ``load_params`` says so) and params-only
-    ``<iter>.params``; at one iteration a full ``.ckpt`` wins. Warns when a
+    package ranks them: ``<iter>.ckpt``, reference ``<iter>.pth`` and
+    params-only ``<iter>.params``; at one iteration a full ``.ckpt`` wins. Warns when a
     ``.params`` file outranks every ``.ckpt`` (resuming from it resets the
     optimizer)."""
     best, best_key = None, (-1, -1)

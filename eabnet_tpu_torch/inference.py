@@ -1,7 +1,8 @@
 """Offline enhancement with a shipped model, in PyTorch.
 
 ``load_enhancer(exp_root)`` reads ``config.json`` and the newest
-``<iter>.params`` of an experiment directory written by the JAX package and
+``<iter>.params`` of an experiment directory written by the JAX package
+(or ``args.pickle`` and the newest ``<iter>.pth`` of a reference one) and
 returns an ``Enhancer``: 9-mic wav in, enhanced wav out, with either
 shipped model (``release/composed_9mic``, IN; ``release/eabnet_9mic_cln``,
 cLN). The model runs on ``device`` (default ``"cuda"``); on a CUDA device
@@ -180,12 +181,20 @@ def load_enhancer(exp_root: str, checkpoint: Optional[str] = None,
                   output: str = "esti", compute_dtype: str = "float32",
                   mesh=None, shard_freq: bool = False,
                   device: str = "cuda") -> Enhancer:
-    """Build an Enhancer from an experiment directory (``config.json`` and
-    the newest checkpoint) or from an explicit checkpoint path."""
-    cfg_path = os.path.join(exp_root, "config.json")
-    if not os.path.exists(cfg_path):
-        raise FileNotFoundError(f"no config.json under {exp_root}")
-    cfg = ExperimentConfig.load(cfg_path)
+    """Build an Enhancer from an experiment directory, the JAX package's
+    (``config.json`` and the newest checkpoint) or a reference one
+    (``args.pickle`` and the newest ``<iter>.pth``,
+    ``utils/convert_args.py``), or from an explicit checkpoint path."""
+    if os.path.exists(os.path.join(exp_root, "config.json")):
+        cfg = ExperimentConfig.load(os.path.join(exp_root, "config.json"))
+    elif os.path.exists(os.path.join(exp_root, "args.pickle")):
+        from eabnet_tpu_torch.utils.convert_args import \
+            load_reference_experiment
+
+        cfg = load_reference_experiment(exp_root)
+    else:
+        raise FileNotFoundError(
+            f"no config.json or args.pickle under {exp_root}")
     ckpt_dir = cfg.train.checkpoint_dir
     if not os.path.isabs(ckpt_dir):
         ckpt_dir = os.path.join(exp_root, os.path.basename(ckpt_dir))
@@ -193,6 +202,6 @@ def load_enhancer(exp_root: str, checkpoint: Optional[str] = None,
         or latest_checkpoint(exp_root)
     if ckpt is None:
         raise FileNotFoundError(f"no checkpoint found under {exp_root}")
-    return Enhancer(cfg, load_params(ckpt), output=output,
+    return Enhancer(cfg, load_params(ckpt, cfg.model), output=output,
                     compute_dtype=compute_dtype, mesh=mesh,
                     shard_freq=shard_freq, device=device)

@@ -6,7 +6,8 @@ batch norms' running statistics) plus the epoch, msgpack-encoded, written
 atomically beside a frozen ``config.json``; ``<iter>.params`` holds the
 params alone. Both packages read each other's files: the port writes the JAX parameter layout
 (``weights.to_jax_tree``) and reads it back (``weights.from_jax_tree``).
-Reference ``.pth`` checkpoints are not read by the port.
+A reference ``<iter>.pth`` is read as the JAX package reads it: its
+params through ``utils/convert_torch.py``, its iteration and epoch.
 """
 
 from __future__ import annotations
@@ -67,15 +68,17 @@ def save_params(model: torch.nn.Module, directory: str, step: int) -> str:
 
 
 def load_checkpoint(path: str, state, cfg: ExperimentConfig) -> Tuple:
-    """Restore (state, epoch) in place from ``<iter>.ckpt``, or the params
-    of ``<iter>.params`` with the step from the file name, the optimizer
-    and batch statistics left as given (fresh) and epoch 0. ``.pth``
-    raises."""
-    del cfg  # the JAX signature; the port needs no config to read a file
+    """Restore (state, epoch) in place from ``<iter>.ckpt``; from
+    ``<iter>.params``, the params with the step from the file name and
+    epoch 0; from a reference ``<iter>.pth``, the params converted for
+    ``cfg.model`` with the file's iteration and epoch. The last two leave
+    the optimizer and batch statistics as given (fresh): torch's Adam
+    moments do not map onto the optax layout."""
     if path.endswith(".pth"):
-        raise NotImplementedError(
-            "reference .pth checkpoints are not read by this slice of the "
-            "port; convert them with the JAX package first")
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        load_jax_params(state.model, load_params(path, cfg.model))
+        state.step = int(ckpt.get("iteration", 0))
+        return state, int(ckpt.get("epoch", 0))
     if path.endswith(".params"):
         load_jax_params(state.model, load_params(path))
         m = re.match(r"(\d+)\.params$", os.path.basename(path))

@@ -93,7 +93,7 @@ def test_load_params_from_params_and_ckpt(tmp_path):
     for name in ("10.params", "10.ckpt"):
         got = checkpoint.load_params(str(tmp_path / name))
         np.testing.assert_array_equal(got["eabnet"]["w"], params["eabnet"]["w"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # a .pth is converted for a config
         checkpoint.load_params(str(tmp_path / "1.pth"))
     assert checkpoint.latest_checkpoint(str(tmp_path / "empty")) is None
 

@@ -671,3 +671,43 @@ def test_tcm_bf16_bwd_kernel_matches_plain_on_card(cuda, release_model, which,
         # LOWP_CHAIN_BWD_SPREAD_DB)
         got, need = kernel_rule(a, r16, r32, tuple(wide), spread=6.0)
         assert got >= need, (i, got, need)
+
+
+# per-item limits of a score against the JAX package's: the port's float32
+# output lies far inside the 40 dB golden rule and the metric code is the
+# same, so the scores agree to about the CSV's 6 digits
+SCORE_TOL = {"pesq": 1e-3, "nb_pesq": 1e-3, "stoi": 1e-4, "estoi": 1e-4,
+             "si_sdr": 1e-3, "si_sir": 1e-3, "si_sar": 1e-3, "seg_snr": 1e-3,
+             "lsd": 1e-3}
+
+
+@pytest.mark.gpu
+def test_scores_on_card_match_release_csv(cuda):
+    """composed_9mic through evaluate_dataset with the release records'
+    featurization (pad_mode="reference", no zero tail) on the card: the
+    first 4 items of release/val_set_large, stage esti, per item against
+    the JAX package's scores in release/refeval_oursdec_esti.csv."""
+    import csv
+
+    from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.eval import evaluate_dataset
+    from eabnet_tpu_torch.inference import Enhancer
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    exp = os.path.join(ROOT, "release", "composed_9mic")
+    val = os.path.join(ROOT, "release", "val_set_large")
+    cfg = ExperimentConfig.load(os.path.join(exp, "config.json"))
+    enh = Enhancer(cfg, load_params(latest_checkpoint(exp)), output="esti",
+                   pad_mode="reference", device="cuda")
+    names = sorted(os.listdir(os.path.join(val, "clean")))[:4]
+    items = ((read_wav(os.path.join(val, "noisy", n))[1],
+              read_wav(os.path.join(val, "clean", n))[1]) for n in names)
+    _, rows = evaluate_dataset(enh, items, names=names)
+    with open(os.path.join(ROOT, "release", "refeval_oursdec_esti.csv")) as f:
+        ref = {r["item"] + ".wav": r for r in csv.DictReader(f)}
+    for row in rows:
+        want = ref[row["filename"]]
+        for m, tol in SCORE_TOL.items():
+            assert abs(row[m] - float(want[m])) <= tol, (
+                row["filename"], m, row[m], want[m])

@@ -31,7 +31,13 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.data.datasets", "eabnet_tpu_torch.streaming",
             "eabnet_tpu_torch.nn.lstm", "eabnet_tpu_torch.cli.stream",
             "eabnet_tpu_torch.nn.stepping",
-            "eabnet_tpu_torch.utils.quantize"} <= set(mods)
+            "eabnet_tpu_torch.utils.quantize", "eabnet_tpu_torch.eval",
+            "eabnet_tpu_torch.eval.harness", "eabnet_tpu_torch.eval.p862",
+            "eabnet_tpu_torch.eval.pesq", "eabnet_tpu_torch.eval.stoi",
+            "eabnet_tpu_torch.cli.common", "eabnet_tpu_torch.cli.test",
+            "eabnet_tpu_torch.cli.score",
+            "eabnet_tpu_torch.utils.convert_torch",
+            "eabnet_tpu_torch.utils.convert_args"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

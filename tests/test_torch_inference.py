@@ -170,9 +170,9 @@ def test_entry_points_default_to_the_card():
     """The device is the caller's choice, the card unless asked."""
     import inspect
 
-    from eabnet_tpu_torch.cli import enhance, stream
+    from eabnet_tpu_torch.cli import enhance, stream, test, train
 
     for fn in (Enhancer, load_enhancer):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (enhance, stream):
+    for cli in (enhance, stream, test, train):
         assert "default: cuda" in inspect.getsource(cli.main)

@@ -122,8 +122,8 @@ def test_params_files_both_ways(tmp_path, jax_state):
     got = flatten_tree(to_jax_params(fresh.model))
     for k, v in flatten_tree(jax_state.params).items():
         assert got[k].tobytes() == v.tobytes(), k
-    with pytest.raises(NotImplementedError):
-        PC.load_checkpoint(str(tmp_path / "3.pth"), fresh, None)
+    with pytest.raises(FileNotFoundError):  # a .pth is read, not refused
+        PC.load_checkpoint(str(tmp_path / "3.pth"), fresh, small_cfg())
 
 
 def test_batch_norm_ckpt_round_trips_bit_for_bit(tmp_path):

@@ -108,7 +108,7 @@ def test_cli_overrides_match_jax():
     import dataclasses
 
     from eabnet_tpu.cli.common import _apply_overrides
-    from eabnet_tpu_torch.cli.train import apply_overrides
+    from eabnet_tpu_torch.cli.common import apply_overrides
 
     d = dataclasses.asdict(ExperimentConfig())
     ours = apply_overrides(json.loads(json.dumps(d)), OVERRIDES)
