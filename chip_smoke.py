@@ -171,6 +171,32 @@ Phases, each announced with its elapsed seconds:
    float32 params and moments. Then 2 bf16 steps of eabnet_9mic_cln from
    its 50000.params: 1 / 0 / 1 / 0 launches per step, all bf16, finite
    losses, step time.
+10. online: online synthesis feeding the flagship recipe
+   (examples/train_online_scene.sh: release-sized cLN models, bf16, batch
+   16, 6-s clips, device_mix="scene", int16 transport, 3 loader workers).
+   Stages its data with the port's tools under build/chip_smoke_online/
+   (160 speech and 24 noise files from synth_speech, tools/e2e_demo.py's
+   settings, cli.split's lists, 12 validation items from cli.datagen with
+   3 spawned workers). Host: the native RIR engine against numpy (1e-5),
+   items per second of full synthesis, parts and scene parameters in one
+   process. On the card at the flagship's shapes (16 items, the same
+   seeds as the host path; the JAX data tests' tolerances): mix_parts
+   against synthesize_item (2e-5 of the peak, rtol 1e-4), the int16
+   transport within 1e-3 of float32, the scene early RIRs against
+   ism_early_rir (3e-5), the tails' per-bin energy against hist_amp^2
+   (rtol 1e-4), each rebuilt RIR's energy against the host render (rtol
+   0.08), the clean target against the host direct path (3e-5), and both
+   mixes giving the same bits twice. The flagship config through
+   cli.train --device cuda for 4 steps, validating once on the 12 items:
+   finite losses, one bf16 LSTM-BF training forward and backward per
+   step, one float32 forward per validation item, no TCM-chain launch. A
+   run stopped at an epoch's end and resumed against one that did not
+   stop, under cuDNN's deterministic algorithms. Modes False, "loader"
+   and "parts" for 3 steps each (False and "parts" see the same audio:
+   step-1 losses within 1e-3). Per mode: step wall (median), seconds
+   waited on the loader, host-to-device bytes, items/s, the mix's kernel
+   time, one profiled step's idle share, peak memory; the resident
+   corpus's bytes.
 
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
@@ -2401,6 +2427,586 @@ def train_bf16_phase(cfg_f32: dict, f32_losses) -> dict:
                 cln_step_s=min(h["seconds"] for h in cln_hist[1:]))
 
 
+# ---------------------------------------------------------------- online
+ONLINE_DIR = "build/chip_smoke_online"
+# the flagship recipe (examples/train_online_scene.sh, tools/long_train.py):
+# a formant-synth corpus of 160 speech and 24 noise files of 6 s (seeds of
+# tools/e2e_demo.py:38-43), its settings (tools/e2e_demo.py:47-62), 3
+# loader workers, batch 16, 12 frozen validation items
+ONLINE_SETTINGS = {
+    "audio": {"fs": 16000, "rir_method": "hybrid"},
+    "room": {"min_dim": [3, 3, 2.5], "max_dim": [10, 10, 3],
+             "rt60": [0.05, 0.7]},
+    "mic_array": {
+        "mics": [{"x": 0.0, "y": round(0.16 - 0.04 * i, 2)}
+                 for i in range(9)],
+        "ref_mic": 0, "direction": {"x": 0, "y": 1},
+        "h": [1, 1.5], "min_dist_to_wall": 0.5,
+    },
+    "target": {"dist_to_mic_array": [1, 5], "h": [1, 1.5],
+               "min_dist_to_wall": 0.5, "fixed_doa": True},
+    "noise": {"min_doa_diff_wrt_target": 5, "min_dist_to_mic_array": 0.5,
+              "n": [1, 3], "h": [1, 1.5], "SNR": [-5, 5]},
+    "noisy_dBFS": [-35, -15],
+}
+ONLINE_CORPUS = (160, 24, 6.0)  # speech files, noise files, seconds
+ONLINE_VAL, ONLINE_BATCH, ONLINE_WORKERS = 12, 16, 3
+ONLINE_STEPS = 4        # the flagship run (scene mode)
+ONLINE_MODE_STEPS = 3   # each other mode
+ONLINE_MODES = (False, "loader", "parts", "scene")
+# the JAX data tests' tolerances (tests/test_data.py, test_scene_mix.py)
+PARTS_ATOL, PARTS_RTOL, INT16_ATOL = 2e-5, 1e-4, 1e-3
+EARLY_ATOL, EARLY_RTOL, TAIL_RTOL, RIR_ENERGY_RTOL = 3e-5, 1e-3, 1e-4, 0.08
+NATIVE_ATOL = 1e-5
+HOST_VS_PARTS_RTOL = 1e-3  # step-1 losses of modes False and "parts"
+
+
+def stage_online(root: str) -> dict:
+    """The flagship recipe's data, staged the way tools/long_train.py does
+    it, with the port's own tools: the corpus, the settings, cli.split's
+    lists and a frozen validation set of ONLINE_VAL items from
+    cli.datagen (ONLINE_WORKERS spawned workers)."""
+    from eabnet_tpu_torch.cli.datagen import main as datagen
+    from eabnet_tpu_torch.cli.split import main as split
+    from eabnet_tpu_torch.data.synth_speech import synth_noise, synth_utterance
+    from eabnet_tpu_torch.utils.audio_io import write_wav
+
+    n_speech, n_noise, seconds = ONLINE_CORPUS
+    paths = {k: os.path.join(root, k) for k in ("speech", "noise", "lists",
+                                                "val")}
+    for k in ("speech", "noise"):
+        os.makedirs(paths[k])
+    t0 = time.perf_counter()
+    for i in range(n_speech):
+        write_wav(os.path.join(paths["speech"], f"sp{i:03d}.wav"), 16000,
+                  synth_utterance(seconds, 16000, seed=7000 + i))
+    for i in range(n_noise):
+        write_wav(os.path.join(paths["noise"], f"no{i:03d}.wav"), 16000,
+                  synth_noise(seconds, 16000, kind=i, seed=9000 + i))
+    paths["settings"] = os.path.join(root, "settings.json")
+    with open(paths["settings"], "w") as f:
+        json.dump(ONLINE_SETTINGS, f)
+    t_corpus = time.perf_counter() - t0
+    split(["--speech-root", paths["speech"], "--noise-root", paths["noise"],
+           "--out-dir", paths["lists"]])
+    t1 = time.perf_counter()
+    # --items: the val list of this corpus holds 7 files, and the recipe's
+    # --limit 12 would render 7 items
+    datagen(["--output-dir", paths["val"], "--speech-root", paths["speech"],
+             "--noise-root", paths["noise"],
+             "--speech-list", os.path.join(paths["lists"], "speechs_val"),
+             "--noise-list", os.path.join(paths["lists"], "noises_val"),
+             "--mcse-settings", paths["settings"],
+             "--clip-seconds", str(seconds),
+             "--workers", str(ONLINE_WORKERS), "--items", str(ONLINE_VAL)])
+    say(f"online: staged {n_speech} speech + {n_noise} noise files of "
+        f"{seconds:g} s in {t_corpus:.1f} s, the val set of "
+        f"{len(os.listdir(os.path.join(paths['val'], 'noisy')))} items in "
+        f"{time.perf_counter() - t1:.1f} s ({ONLINE_WORKERS} workers)")
+    return paths
+
+
+def flagship_config(paths: dict, run: str, **data) -> dict:
+    """The flagship recipe's config as tools/long_train.py builds it for
+    examples/train_online_scene.sh (release-sized EaBNet and GaGNet, cLN
+    in both, bf16, batch 16, 6-s clips, online scene mode with int16
+    transport, 3 workers), validating once before training; ``data``
+    overrides data keys."""
+    from eabnet_tpu_torch.config import ExperimentConfig
+
+    d = json.loads(ExperimentConfig().to_json())
+    for net in ("eabnet", "gagnet"):
+        d["model"][net]["norm_type"] = "cLN"
+    d["model"]["eabnet"]["bf_impl"] = "pallas"
+    d["data"].update(
+        dataset="mcse", train_set="online", speech_root=paths["speech"],
+        noise_root=paths["noise"],
+        speech_list=os.path.join(paths["lists"], "speechs_train"),
+        noise_list=os.path.join(paths["lists"], "noises_train"),
+        device_mix="scene", transfer_int16=True,
+        mcse_settings=paths["settings"], val_set=paths["val"],
+        clip_seconds=ONLINE_CORPUS[2], num_workers=ONLINE_WORKERS)
+    d["data"].update(data)
+    d["train"].update(
+        batch_size=ONLINE_BATCH, wav_len=ONLINE_CORPUS[2],
+        total_epoch=10 ** 9, log_every=50, lr=5e-4, valid_interval=1e18,
+        saving_interval=1e18, fixed_seed=True, compute_dtype="bfloat16",
+        validate_once_before_train=True,
+        checkpoint_dir=os.path.join(ONLINE_DIR, run, "ckpt"),
+        exp_root=os.path.join(ONLINE_DIR, run))
+    return d
+
+
+def replay_scene(opt: dict, seed: int, n_noise_files: int):
+    """The scene synthesize_item draws for ``seed`` (the same RNG prefix)."""
+    import numpy as np
+
+    from eabnet_tpu_torch.data.scenes import sample_scene
+
+    rng = np.random.default_rng(seed)
+    k = int(rng.integers(opt["noise"]["n"][0], opt["noise"]["n"][1] + 1))
+    rng.integers(0, n_noise_files, size=k)
+    return sample_scene(opt, rng, n_noises_override=k)
+
+
+def host_items(ds, n: int) -> dict:
+    """Items 0..n-1 of epoch 0 in the three host forms (the same seeds,
+    the native RIR engine) and each form's items per second in this
+    process."""
+    from eabnet_tpu_torch.data.datasets import synthesize_item
+    from eabnet_tpu_torch.data.device_mix import synthesize_item_parts
+    from eabnet_tpu_torch.data.scene_mix import synthesize_item_scene
+
+    out, rate = {}, {}
+    for kind, fn in (("host", synthesize_item),
+                     ("parts", synthesize_item_parts),
+                     ("scene", synthesize_item_scene)):
+        t0 = time.perf_counter()
+        items = []
+        for i in range(n):
+            args = dict(ds.item_args(i, 0), rir_backend="native")
+            if kind == "scene":
+                args["speech_index"] = i
+            items.append(fn(**args))
+        rate[kind] = n / (time.perf_counter() - t0)
+        out[kind] = items
+    return out, rate
+
+
+def native_check(ds, seeds) -> float:
+    """The native engine against the numpy RIRs: the JAX test's room and
+    the hybrid RIRs of the given scenes (same RNG for the tails); -> the
+    largest difference over the common length."""
+    import numpy as np
+
+    from eabnet_tpu_torch.data.rir import inverse_sabine, shoebox_rir
+    from eabnet_tpu_torch.data.rir_native import shoebox_rir_native
+
+    room, mics = [6.0, 5.0, 3.0], np.array([[4.0, 3.0, 1.5],
+                                            [4.1, 3.0, 1.5]])
+    e_abs, order = inverse_sabine(0.3, room)
+    cases = [(room, [2, 2, 1.5], mics, e_abs, order, {})]
+    for seed in seeds:
+        sc = replay_scene(ds.opt, seed, len(ds.noise_list))
+        for p in [sc.p_target] + list(sc.p_noises):
+            cases.append((sc.room_dim, p, sc.p_mics, sc.e_absorption,
+                          sc.max_order, dict(method=sc.rir_method,
+                                             rt60=sc.rt60)))
+    worst, lengths_ok = 0.0, True
+    for room_, src, mics_, e, o, kw in cases:
+        a = shoebox_rir(room_, src, mics_, e, o, 16000,
+                        rng=np.random.default_rng(1), **kw)
+        b = shoebox_rir_native(room_, src, mics_, e, o, 16000,
+                               rng=np.random.default_rng(1), **kw)
+        n = min(a.shape[1], b.shape[1])
+        lengths_ok &= abs(a.shape[1] - b.shape[1]) <= 81 and all(
+            h.shape[1] == n or np.abs(h[:, n:]).max() < NATIVE_ATOL
+            for h in (a, b))
+        worst = max(worst, float(np.abs(a[:, :n] - b[:, :n]).max()))
+    say(f"online: native RIR engine vs numpy over {len(cases)} RIRs: "
+        f"largest difference {worst:.3e} (limit {NATIVE_ATOL:g})")
+    require(worst <= NATIVE_ATOL and lengths_ok,
+            f"online: native RIRs within {NATIVE_ATOL:g} of numpy's, "
+            f"lengths within the 81-tap filter")
+    return worst
+
+
+def device_mix_checks(ds, items, dims) -> dict:
+    """The device halves on the card at the flagship's shapes against the
+    host path for the same seeds."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.data.device_mix import (batch_to_device,
+                                                  collate_parts, mix_parts)
+    from eabnet_tpu_torch.data.rir import (DEFAULT_AIR_ABSORPTION,
+                                           ism_early_rir)
+    from eabnet_tpu_torch.data.scene_mix import (collate_scenes,
+                                                 load_corpus_int16,
+                                                 mix_scene,
+                                                 scene_early_rirs,
+                                                 scene_tails)
+
+    dev = "cuda"
+    host = items["host"]
+    h_noisy = np.stack([x for x, _ in host])
+    h_clean = np.stack([y for _, y in host])
+    s_max = 1 + int(ds.opt["noise"]["n"][1])
+    res = {}
+    f32 = batch_to_device(collate_parts(items["parts"], s_max=s_max,
+                                        rir_pad=dims["l_rir"]), dev)
+    q16 = batch_to_device(collate_parts(items["parts"], s_max=s_max,
+                                        rir_pad=dims["l_rir"],
+                                        quantize=True), dev)
+    with torch.no_grad():
+        n = f32["sources"].shape[-1]
+        pn, pc = (x.cpu().numpy() for x in mix_parts(f32, n))
+        qn, qc = (x.cpu().numpy() for x in mix_parts(q16, n))
+    res["parts_err"] = (float(np.abs(pn - h_noisy).max()
+                              / np.abs(h_noisy).max()),
+                        float(np.abs(pc - h_clean).max()
+                              / np.abs(h_clean).max()))
+    say(f"online: mix_parts vs synthesize_item ({len(host)} items, "
+        f"{ONLINE_CORPUS[2]:g} s): noisy {res['parts_err'][0]:.3e}, clean "
+        f"{res['parts_err'][1]:.3e} of the peak (limit {PARTS_ATOL:g}, rtol "
+        f"{PARTS_RTOL:g})")
+    require(np.allclose(pn, h_noisy, atol=PARTS_ATOL * np.abs(h_noisy).max(),
+                        rtol=PARTS_RTOL)
+            and np.allclose(pc, h_clean,
+                            atol=PARTS_ATOL * np.abs(h_clean).max(),
+                            rtol=PARTS_RTOL),
+            "online: mix_parts on the card matches the host path")
+    res["int16_err"] = float(max(np.abs(qn - pn).max() / np.abs(pn).max(),
+                                 np.abs(qc - pc).max() / np.abs(pc).max()))
+    say(f"online: int16 transport vs float32: {res['int16_err']:.3e} of the "
+        f"peak (limit {INT16_ATOL:g})")
+    require(res["int16_err"] <= INT16_ATOL,
+            "online: the int16 transport within 1e-3 of float32")
+
+    batch = collate_scenes(items["scene"], dims)
+    t = batch_to_device(batch, dev)
+    with torch.no_grad():
+        early = scene_early_rirs(t["delays"], t["amps"],
+                                 dims["early_pad"]).cpu().numpy()
+        tail = scene_tails(t["hist_amp"], batch["tail_seeds"],
+                           dims["spb"]).cpu().numpy()
+    # the early RIRs against ism_early_rir on the replayed scenes
+    worst_early, early_ok = 0.0, True
+    full_e = []
+    for i, it in enumerate(items["scene"]):
+        sc = replay_scene(ds.opt, ds.item_args(i, 0)["seed"],
+                          len(ds.noise_list))
+        srcs = [sc.p_target] + list(sc.p_noises)
+        for s, p in enumerate(srcs):
+            ref, _ = ism_early_rir(sc.room_dim, p, sc.p_mics,
+                                   sc.e_absorption, 3, 16000,
+                                   air_absorption=DEFAULT_AIR_ABSORPTION)
+            got = early[i, s, :, :ref.shape[1]]
+            scale = np.abs(ref).max()
+            early_ok &= bool(np.allclose(
+                got, ref, atol=EARLY_ATOL * scale, rtol=EARLY_RTOL)) and (
+                np.abs(early[i, s, :, ref.shape[1]:]).max() <= 1e-6 * scale)
+            worst_early = max(worst_early,
+                              float(np.abs(got - ref).max() / scale))
+            full = np.zeros((early.shape[2], dims["l_rir"]))
+            full[:, :early.shape[-1]] += early[i, s]
+            full[:, :tail.shape[-1]] += tail[i, s]
+            host_rir = items["parts"][i][1][s].astype(np.float64)
+            full_e.append(((full ** 2).sum(-1),
+                           (host_rir ** 2).sum(-1)))
+    res["early_err"] = worst_early
+    e_dev = np.concatenate([a for a, _ in full_e])
+    e_host = np.concatenate([b for _, b in full_e])
+    res["rir_energy_rel"] = float(np.abs(e_dev / e_host - 1).max())
+    b, s, m, nb = batch["hist_amp"].shape
+    energy = (tail.reshape(b, s, m, nb, dims["spb"]).astype(np.float64)
+              ** 2).sum(-1)
+    want = batch["hist_amp"].astype(np.float64) ** 2
+    res["tail_rel"] = float((np.abs(energy - want)
+                             / np.maximum(want, 1e-30))[want > 0].max())
+    say(f"online: scene early RIRs vs ism_early_rir: {worst_early:.3e} of "
+        f"the peak (limit {EARLY_ATOL:g}); per-bin tail energy vs "
+        f"hist_amp^2: {res['tail_rel']:.3e} relative (limit {TAIL_RTOL:g}); "
+        f"full-RIR energy per (source, mic) vs the host render: "
+        f"{res['rir_energy_rel']:.4f} relative at most (limit "
+        f"{RIR_ENERGY_RTOL:g})")
+    require(early_ok, f"online: every early RIR within {EARLY_ATOL:g} of "
+            "ism_early_rir (rtol 1e-3), nothing past it")
+    require(res["tail_rel"] <= TAIL_RTOL
+            and (energy[want == 0] == 0).all(),
+            "online: tail energy per bin is hist_amp^2 (zero where it is)")
+    require(res["rir_energy_rel"] <= RIR_ENERGY_RTOL,
+            "online: rebuilt RIR energies match the host render")
+
+    corpus = tuple(
+        torch.from_numpy(load_corpus_int16(root, names, 16000)).to(dev)
+        for root, names in ((ds.speech_root, ds.speech_list),
+                            (ds.noise_root, ds.noise_list)))
+    with torch.no_grad():
+        noisy, clean = mix_scene(t, *corpus, dims)
+        clean = clean.cpu().numpy()
+        res["clean_err"] = float(np.abs(clean - h_clean).max()
+                                 / np.abs(h_clean).max())
+        require(noisy.shape == (b, 9, dims["n"])
+                and bool(torch.isfinite(noisy).all())
+                and np.allclose(clean, h_clean,
+                                atol=EARLY_ATOL * np.abs(h_clean).max(),
+                                rtol=EARLY_RTOL),
+                f"online: scene clean target within {EARLY_ATOL:g} of the "
+                f"host direct path ({res['clean_err']:.3e}), noisy finite")
+        parts_off = mix_parts(q16, n)
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        try:
+            twice = [mix_scene(t, *corpus, dims) for _ in range(2)]
+            twice_parts = [mix_parts(q16, n) for _ in range(2)]
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b_) for pair in (twice, twice_parts)
+               for a, b_ in zip(*pair))
+    off = torch.equal(twice[0][0], noisy) and torch.equal(
+        twice_parts[0][0], parts_off[0])
+    say(f"online: the mixes under deterministic algorithms, twice each: "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(same and off, "online: mix_scene and mix_parts give the same "
+            "bits twice under deterministic algorithms, and without them")
+    res["corpus_bytes"] = sum(c.numel() * c.element_size() for c in corpus)
+    res["corpus"] = corpus
+    return res
+
+
+def kernel_time(fn):
+    """fn() once under torch.profiler recording the device alone (a
+    train step's host events would cost more to collect than the step)
+    -> (kernel ms or None where no device time was recorded, wall ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return (busy or None), wall
+
+
+def timed_mix(fn, reps: int = 3) -> dict:
+    """A mix's time per call: host ms around synchronised calls, device ms
+    between CUDA events, and its kernel time (torch.profiler, None where
+    it recorded no device time: it has dropped them late in full runs)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    return dict(ms=ms, device_ms=cuda_ms(fn, reps, warmup=0),
+                kernel_ms=kernel_time(fn)[0])
+
+
+def mode_profiles(cfg_dict: dict, items, dims, corpus, smi: str) -> dict:
+    """For each data mode: one train step of the flagship model on a batch
+    of the 16 items, profiled after a warm-up (kernel time, idle share),
+    the mix alone (its kernel time and host ms), the peak device memory
+    and the host-to-device bytes of the batch."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.data.datasets import _collate
+    from eabnet_tpu_torch.data.device_mix import (batch_to_device,
+                                                  collate_parts,
+                                                  device_mix_batch,
+                                                  mix_parts)
+    from eabnet_tpu_torch.data.scene_mix import collate_scenes, mix_scene
+    from eabnet_tpu_torch.train.step import (create_train_state,
+                                             make_train_step)
+    from eabnet_tpu_torch.utils.precision import float32_products
+
+    cfg = ExperimentConfig.from_dict(cfg_dict)
+    s_max = 1 + int(ONLINE_SETTINGS["noise"]["n"][1])
+    out = {}
+    with float32_products("cuda"):
+        state = create_train_state(cfg, "cuda")
+        for mode in ONLINE_MODES:
+            if mode == "scene":
+                host = collate_scenes(items["scene"], dims)
+                batch = batch_to_device(host, "cuda")
+                step = make_train_step(cfg, "scene", dims)
+                args = (batch, *corpus)
+                mix = lambda: mix_scene(batch, *corpus, dims)  # noqa: E731
+            elif mode == "parts":
+                host = collate_parts(items["parts"], s_max=s_max,
+                                     rir_pad=dims["l_rir"], quantize=True)
+                batch = batch_to_device(host, "cuda")
+                step = make_train_step(cfg, "parts", dims)
+                args = (batch,)
+                mix = lambda: mix_parts(batch, dims["n"])  # noqa: E731
+            else:
+                if mode == "loader":
+                    noisy, clean = device_mix_batch(items["parts"],
+                                                    device="cuda")
+                    host = (noisy, clean, np.full((len(noisy),),
+                                                  noisy.shape[-1], np.int32))
+                    mix = lambda: device_mix_batch(  # noqa: E731
+                        items["parts"], device="cuda")
+                else:
+                    host = _collate(items["host"])
+                    mix = None
+                step = make_train_step(cfg)
+                args = tuple(torch.from_numpy(a).cuda() for a in host)
+            nbytes = (sum(v.nbytes for k, v in host.items()
+                          if k != "tail_seeds") if isinstance(host, dict)
+                      else sum(a.nbytes for a in host))
+            with torch.no_grad():
+                m = timed_mix(mix) if mix else dict(ms=0.0, device_ms=0.0,
+                                                    kernel_ms=0.0)
+            if not out:
+                step(state, *args)  # warm-up (every mode's model shapes)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            busy, wall = kernel_time(lambda: step(state, *args))
+            out[str(mode)] = dict(
+                bytes=nbytes, mix_ms=m["ms"], mix_device_ms=m["device_ms"],
+                mix_kernel_ms=m["kernel_ms"],
+                step_kernel_ms=busy, profiled_wall_ms=wall,
+                idle=None if busy is None else max(0.0, 1 - busy / wall),
+                peak_bytes=torch.cuda.max_memory_allocated())
+            r = out[str(mode)]
+            say(f"online {mode}: one profiled step {wall:.1f} ms wall, "
+                f"kernel time {busy if busy is None else round(busy, 2)} ms "
+                f"(idle {r['idle'] if busy is None else round(r['idle'], 3)})"
+                f", the mix alone {m['ms']:.2f} ms host / "
+                f"{m['device_ms']:.2f} ms device (CUDA events) / "
+                f"{m['kernel_ms']} ms kernel, peak memory "
+                f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, host-to-device "
+                f"{nbytes / 1e6:.2f} MB a batch ({smi})")
+    del state
+    return out
+
+
+def online_phase(smi: str) -> dict:
+    """Online synthesis feeding the flagship recipe's training on the card
+    (PERF.md §4's online cell): staging, host checks, the device mixes
+    against the host path, the flagship run through cli.train (scene
+    mode, 3 spawned workers, launches per step), a stopped-and-resumed
+    run against an uninterrupted one, the other data modes, and per mode
+    the step, the loader's wait, the bytes, the mix's device time, idle
+    share and peak memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.cli.train import main as train_cli
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.data.datasets import OnlineMcseDataset
+    from eabnet_tpu_torch.data.scene_mix import scene_static_dims
+    from eabnet_tpu_torch.train.trainer import train
+
+    shutil.rmtree(ONLINE_DIR, ignore_errors=True)
+    paths = stage_online(os.path.join(ONLINE_DIR, "data"))
+    cfg_dict = flagship_config(paths, "flagship")
+    cfg = ExperimentConfig.from_dict(cfg_dict)
+    ds = OnlineMcseDataset(cfg.data, seed=cfg.train.seed)
+    dims = scene_static_dims(ds.opt, cfg.data.clip_seconds)
+    say(f"online: scene dims {dims}, {len(ds)} training speech files, "
+        f"{len(ds.noise_list)} noise files")
+
+    items, rate = host_items(ds, ONLINE_BATCH)
+    say(f"online: host items per second in one process (native RIRs): "
+        f"full synthesis {rate['host']:.2f}, parts {rate['parts']:.2f}, "
+        f"scene parameters {rate['scene']:.2f}")
+    native_err = native_check(ds, [ds.item_args(i, 0)["seed"]
+                                   for i in range(4)])
+    checks = device_mix_checks(ds, items, dims)
+    corpus = checks.pop("corpus")
+
+    # the flagship run through the CLI: scene mode, 3 spawned workers
+    cfg_path = os.path.join(ONLINE_DIR, "flagship.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg_dict, f, indent=2)
+    zero_launches()
+    hist = train_cli(["--config", cfg_path, "--max-steps", str(ONLINE_STEPS),
+                      "--device", "cuda"])
+    launches, entries = read_launches(), read_entries()
+    n_val = len(os.listdir(os.path.join(paths["val"], "noisy")))
+    say(f"online flagship: losses {[[round(h[k], 6) for k in LOSS_KEYS] for h in hist]}, "
+        f"launches {launches}, by C entry {entries}")
+    require(len(hist) == ONLINE_STEPS and all(
+        np.isfinite(h[k]) for h in hist for k in LOSS_KEYS),
+        f"online flagship: {ONLINE_STEPS} finite steps through cli.train")
+    want = {"lstm_bf_fwd_train_bf16": ONLINE_STEPS,
+            "lstm_bf_bwd_bf16": ONLINE_STEPS, "lstm_bf_fwd": n_val}
+    require(entries == want and launches["tcm_chain"] == 0
+            and launches["tcm_chain_bwd"] == 0,
+            f"online flagship: one bf16 LSTM-BF training forward and "
+            f"backward per step, {n_val} float32 forwards validating, no "
+            f"TCM-chain launch")
+
+    # a run stopped at an epoch's end and resumed, against one that did not
+    # stop: 32 speech files make an epoch of 2 steps (no workers: the
+    # batches do not depend on them, tests/test_torch_online_host.py)
+    short = os.path.join(ONLINE_DIR, "speechs_32")
+    with open(short, "w") as f:
+        f.write("\n".join(ds.speech_list[:2 * ONLINE_BATCH]))
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, stops in (("stopped", (2, 3)), ("straight", (3,))):
+            d = flagship_config(paths, f"resume_{name}", speech_list=short)
+            d["data"]["num_workers"] = 0
+            d["train"]["validate_once_before_train"] = False
+            c = ExperimentConfig.from_dict(d)
+            runs[name] = [train(c, max_steps=s, device="cuda",
+                                tensorboard=False) for s in stops]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    r, s_ = runs["stopped"][1], runs["straight"][0]
+    say(f"online resume: step 3 after stopping at the end of epoch 0 "
+        f"{[r[0][k] for k in LOSS_KEYS]} (epoch {r[0]['epoch']}), without "
+        f"stopping {[s_[2][k] for k in LOSS_KEYS]} (epoch {s_[2]['epoch']})")
+    require(len(r) == 1 and r[0]["step"] == 3 and r[0]["epoch"] == 1
+            and all(abs(r[0][k] - s_[2][k]) <= 1e-6 * abs(s_[2][k])
+                    for k in LOSS_KEYS),
+            "online resume: the resumed step's losses equal the "
+            "uninterrupted run's (within 1e-6 relative)")
+
+    # the other modes, a few steps each
+    modes = {"scene": hist}
+    for mode in ONLINE_MODES[:-1]:
+        d = flagship_config(paths, f"mode_{mode}", device_mix=mode)
+        d["train"]["validate_once_before_train"] = False
+        modes[str(mode)] = train(ExperimentConfig.from_dict(d),
+                                 max_steps=ONLINE_MODE_STEPS, device="cuda",
+                                 tensorboard=False)
+        require(all(np.isfinite(h[k]) for h in modes[str(mode)]
+                    for k in LOSS_KEYS),
+                f"online {mode}: {ONLINE_MODE_STEPS} finite steps")
+    l_host, l_parts = modes["False"][0]["final"], modes["parts"][0]["final"]
+    say(f"online: step-1 loss, mode False {l_host!r}, parts {l_parts!r} "
+        f"(relative {abs(l_parts - l_host) / abs(l_host):.3e})")
+    require(abs(l_parts - l_host) <= HOST_VS_PARTS_RTOL * abs(l_host),
+            f"online: modes False and parts see the same audio (step-1 "
+            f"losses within {HOST_VS_PARTS_RTOL:g})")
+
+    prof = mode_profiles(cfg_dict, items, dims, corpus, smi)
+    summary = {}
+    for mode, h in modes.items():
+        later = h[1:]
+        summary[mode] = dict(
+            step_ms=float(np.median([x["seconds"] for x in later])) * 1e3,
+            wait_ms=float(np.median([x["wait"] for x in later])) * 1e3,
+            first_wait_s=h[0]["wait"], bytes=h[0]["bytes"],
+            items_s=ONLINE_BATCH / float(np.median(
+                [x["seconds"] + x["wait"] for x in later])),
+            **{k: prof[mode][k] for k in ("mix_ms", "mix_device_ms",
+                                          "mix_kernel_ms", "step_kernel_ms",
+                                          "idle", "peak_bytes")})
+        v = summary[mode]
+        say(f"online {mode}: step {v['step_ms']:.1f} ms (median of steps 2-"
+            f"{len(h)}), waited on the loader {v['wait_ms']:.1f} ms a step "
+            f"(first batch {v['first_wait_s']:.1f} s), {v['items_s']:.2f} "
+            f"items/s, host-to-device {v['bytes'] / 1e6:.2f} MB a step, the "
+            f"mix {v['mix_device_ms']:.2f} ms on the card, idle "
+            f"{v['idle']}, peak {v['peak_bytes'] / 2 ** 30:.2f} GiB ({smi})")
+    say(f"online: resident corpus {checks['corpus_bytes'] / 1e6:.2f} MB; "
+        f"host items/s per worker: full synthesis {rate['host']:.2f}, "
+        f"parts {rate['parts']:.2f}, scene {rate['scene']:.2f} ({smi})")
+    del corpus
+    return dict(entries=entries, launches=launches, modes=summary,
+                host_items_s=rate, native_err=native_err,
+                checks=checks)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import numpy as np
@@ -2649,6 +3255,11 @@ def main() -> int:
             json.loads(str(np.load(TRAIN_GOLDEN)["config"])),
             trained["losses"])
 
+    with Phase("online"):
+        t_phase = time.perf_counter()
+        online = online_phase(smi)
+        say(f"online: phase {time.perf_counter() - t_phase:.1f} s")
+
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
@@ -2823,6 +3434,8 @@ def main() -> int:
     record["eval"] = {f: evaluated[f] for f in (
         "wall", "enhance_s", "score_s", "cli_s", "workers", "n_scored",
         "items_per_s", "lowp")}
+    record["online"] = {f: online[f] for f in (
+        "modes", "host_items_s", "native_err", "checks")}
     record["lowp"] = {p: {f: v[f] for f in (
         "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
         "idle", "item")} for p, v in lowp.items()}
@@ -2837,7 +3450,8 @@ def main() -> int:
              "eval": evaluated["entries"],
              "eval lowp": evaluated["lowp_entries"],
              "train_bf16": trained16["entries"],
-             "train_bf16_cln": trained16["cln_entries"]}
+             "train_bf16_cln": trained16["cln_entries"],
+             "online": online["entries"]}
     for k in record["kernels"]:
         entries, main_path = ROW_ENTRIES[k["name"]]
         k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)

@@ -7,7 +7,13 @@ Runs ``train.trainer.train`` on one device (the card by default; ``cpu``
 runs every kernel's plain version). ``--config`` and ``--set`` are those
 of ``cli/common.py``. A released config records
 ``train.compute_dtype: "bfloat16"`` and trains in bf16 mixed precision as
-recorded; ``--set train.compute_dtype=float32`` trains it in float32."""
+recorded; ``--set train.compute_dtype=float32`` trains it in float32.
+``main`` returns ``train``'s per-step records.
+
+An online config (``data.train_set="online"``) synthesizes in
+``data.num_workers`` spawned processes, which import the calling script
+as a module: a script that calls ``main`` or ``train`` runs them under
+``if __name__ == "__main__":``."""
 
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ def main(argv=None):
 
     from eabnet_tpu_torch.train.trainer import train
 
-    train(load_config(args), max_steps=args.max_steps, device=args.device)
+    return train(load_config(args), max_steps=args.max_steps,
+                 device=args.device)
 
 
 if __name__ == "__main__":

@@ -140,12 +140,18 @@ class ComposedConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Data loading. The port loads the ``fake`` dataset and offline
-    ``mcse`` pairs (``train_set`` other than "online") in process,
-    ``transfer_int16`` included; online synthesis, ``l3das23`` and
-    ``device_mix`` raise ``NotImplementedError``. ``num_workers`` and
-    ``prefetch`` serve only online synthesis in the JAX package and are
-    read, not acted on. Every key is accepted so every config loads."""
+    """Data loading, as the JAX package's: the ``fake`` dataset, offline
+    ``mcse`` pairs (``transfer_int16`` ships their int16 samples) and
+    online ``mcse`` synthesis (``train_set="online"``: scenes drawn from
+    ``mcse_settings`` over ``speech_list``/``noise_list``, RIRs by
+    ``rir_backend``, in ``num_workers`` spawned processes ``prefetch``
+    batches ahead). ``device_mix`` moves the room propagation onto the
+    device: ``"loader"`` (or ``True``) mixes each batch there before the
+    step, ``"parts"`` inside the train step, ``"scene"`` also rebuilds the
+    RIRs there from scene parameters against a device-resident corpus
+    (``transfer_int16`` ships the parts as int16). ``l3das23`` raises
+    ``NotImplementedError``. Every key is accepted so every config
+    loads."""
 
     dataset: str = "mcse"
     train_set: str = "online"
@@ -265,16 +271,15 @@ def require_slice(cfg) -> None:
 def require_training(cfg: ExperimentConfig) -> None:
     """Refuse a training configuration this slice of the port does not
     run (beside ``require_slice``, which the models apply): a compute
-    dtype other than float32 and bfloat16, on-device synthesis, and meshes
-    beyond one device's data axis."""
+    dtype other than float32 and bfloat16, and meshes beyond one device's
+    data axis. An unknown ``device_mix`` mode raises ``ValueError``, as in
+    the JAX package."""
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
             "float32 or bfloat16 mixed precision")
-    if cfg.data.device_mix:
-        raise NotImplementedError(
-            f"device_mix={cfg.data.device_mix!r}: on-device synthesis is a "
-            "later slice of the port")
+    if cfg.data.device_mix not in (False, True, "loader", "parts", "scene"):
+        raise ValueError(f"unknown device_mix mode {cfg.data.device_mix!r}")
     if tuple(cfg.train.mesh_axes) != ("data",):
         raise NotImplementedError(
             f"mesh_axes={cfg.train.mesh_axes!r}: the port trains on one "

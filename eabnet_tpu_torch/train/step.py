@@ -181,14 +181,27 @@ def _forward_losses(model, cfg, noisy_wav, target_wav, n_samples,
     return losses, out
 
 
-def make_train_step(cfg: ExperimentConfig) -> Callable:
+def make_train_step(cfg: ExperimentConfig, batch_kind: str = "wav",
+                    scene_dims: Optional[Dict[str, int]] = None
+                    ) -> Callable:
     """-> ``train_step(state, noisy_wav (B, M, N), target_wav (B, N),
     n_samples (B,) or None) -> (state, {eabnet, postnet, final})``, the
     losses as 0-d tensors before the update. Under
     ``cfg.model.freeze_eabnet`` the gradients and the updates of the
     ``eabnet`` parameters are zeroed; their Adam moments still decay.
     ``cfg.train.compute_dtype`` picks float32 or bf16 mixed precision
-    (module doc)."""
+    (module doc).
+
+    ``batch_kind`` "parts" takes ``train_step(state, batch)``, a collated
+    parts dict on the device (``data/device_mix.py``); "scene" takes
+    ``train_step(state, batch, corpus_speech, corpus_noise)``, a collated
+    scene dict and the resident int16 corpus (``data/scene_mix.py``, with
+    ``scene_dims``). Both mix the batch in float32 without gradients and
+    then take the wav step on it, as the JAX package's fused steps do."""
+    if batch_kind == "scene" and scene_dims is None:
+        raise ValueError("batch_kind='scene' needs scene_dims")
+    if batch_kind not in ("wav", "parts", "scene"):
+        raise ValueError(f"unknown batch_kind {batch_kind!r}")
     frozen = "eabnet." if cfg.model.freeze_eabnet else None
     compute = _COMPUTE[cfg.train.compute_dtype]
 
@@ -217,6 +230,26 @@ def make_train_step(cfg: ExperimentConfig) -> Callable:
         state.step += 1
         return state, {k: v.detach() for k, v in losses.items()}
 
+    if batch_kind == "parts":
+        from eabnet_tpu_torch.data.device_mix import mix_parts
+
+        def parts_step(state: TrainState, batch):
+            with torch.no_grad():
+                noisy, target = mix_parts(batch, batch["sources"].shape[-1])
+            return train_step(state, noisy, target, batch["lengths"])
+
+        return parts_step
+    if batch_kind == "scene":
+        from eabnet_tpu_torch.data.scene_mix import mix_scene
+
+        def scene_step(state: TrainState, batch, corpus_speech,
+                       corpus_noise):
+            with torch.no_grad():
+                noisy, target = mix_scene(batch, corpus_speech,
+                                          corpus_noise, scene_dims)
+            return train_step(state, noisy, target, batch["lengths"])
+
+        return scene_step
     return train_step
 
 

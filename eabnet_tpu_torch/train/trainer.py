@@ -3,10 +3,15 @@ validation, as the JAX package's ``train/trainer.py`` runs them:
 
 - auto-resume from the newest checkpoint in ``train.checkpoint_dir`` (a
   ``.params`` file resumes its params with a fresh optimizer and the step
-  from its name);
+  from its name), at the epoch after the checkpoint's;
 - loss means printed (and logged) every ``log_every`` steps, a checkpoint
   every ``saving_interval`` epochs' worth of steps, validation every
-  ``valid_interval``; a checkpoint at ``max_steps`` and at the end.
+  ``valid_interval``; a checkpoint at ``max_steps`` and at the end;
+- online synthesis (``data.train_set="online"``) through the loader's
+  spawned workers, with the room propagation on the device by
+  ``data.device_mix``: the ``parts`` and ``scene`` steps mix inside the
+  train step, ``scene`` against the int16 corpus loaded onto the device
+  once; every ``scene`` or ``parts`` batch of a run has one shape.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from eabnet_tpu_torch.config import ExperimentConfig, require_training
 from eabnet_tpu_torch.data.datasets import BatchLoader, make_dataset
+from eabnet_tpu_torch.data.device_mix import batch_to_device
 from eabnet_tpu_torch.dsp import stft_to_wav
 from eabnet_tpu_torch.models.eabnet import to_reference_layout
 from eabnet_tpu_torch.train.checkpoint import (latest_checkpoint,
@@ -32,6 +38,14 @@ from eabnet_tpu_torch.utils.precision import float32_products
 
 def _to_device(batch, device):
     return tuple(torch.from_numpy(a).to(device) for a in batch)
+
+
+def _nbytes(batch) -> int:
+    """Host-to-device bytes of a batch (a dict's ``tail_seeds`` stay on the
+    host)."""
+    if isinstance(batch, dict):
+        return sum(v.nbytes for k, v in batch.items() if k != "tail_seeds")
+    return sum(a.nbytes for a in batch)
 
 
 def validate(cfg: ExperimentConfig, state, eval_step, val_loader, logger,
@@ -62,10 +76,12 @@ def validate(cfg: ExperimentConfig, state, eval_step, val_loader, logger,
 def train(cfg: ExperimentConfig, max_steps: Optional[int] = None,
           device: str = "cuda", tensorboard: bool = True) -> List[Dict]:
     """Train (or resume) on ``device``. Returns one record per step taken:
-    ``{"step", "epoch", "eabnet", "postnet", "final", "seconds"}``, the
-    losses before that step's update and the step's wall time (host to
-    device copy, forward, backward, update, loss read back). On the card
-    it runs with float32 products (``float32_products``)."""
+    ``{"step", "epoch", "eabnet", "postnet", "final", "seconds", "wait",
+    "bytes"}``: the losses before that step's update, the step's wall
+    time (host to device copy, mix, forward, backward, update, loss read
+    back), the seconds the loop waited on the loader for its batch, and
+    the batch's host-to-device bytes. On the card it runs with float32
+    products (``float32_products``)."""
     require_training(cfg)
     with float32_products(device):
         return _train(cfg, max_steps, device, tensorboard)
@@ -93,12 +109,56 @@ def _train(cfg: ExperimentConfig, max_steps: Optional[int], device: str,
     if train_ds is None:
         raise ValueError("the data config names no training set")
     pad_multiple = max(1, int(cfg.data.pad_to_seconds * cfg.stft.sr))
-    train_loader = BatchLoader(train_ds, cfg.train.batch_size, shuffle=True,
-                               seed=cfg.train.seed, pad_multiple=pad_multiple)
+    mix_mode = {True: "loader", False: None}.get(cfg.data.device_mix,
+                                                 cfg.data.device_mix)
+    scene_dims, rir_pad = None, 0
+    if mix_mode in ("parts", "scene") and hasattr(train_ds, "opt"):
+        from eabnet_tpu_torch.data.scene_mix import scene_static_dims
+
+        try:
+            scene_dims = scene_static_dims(train_ds.opt,
+                                           cfg.data.clip_seconds)
+            rir_pad = scene_dims["l_rir"]  # one RIR shape for the run
+        except ValueError:
+            if mix_mode == "scene":
+                raise
+    train_loader = BatchLoader(
+        train_ds, cfg.train.batch_size, num_workers=cfg.data.num_workers,
+        prefetch=cfg.data.prefetch, shuffle=True, seed=cfg.train.seed,
+        pad_multiple=pad_multiple, device_mix=cfg.data.device_mix,
+        mix_quantize=cfg.data.transfer_int16, rir_pad=rir_pad,
+        device=device)
+    try:
+        return _loop(cfg, max_steps, device, state, resume_epoch, logger,
+                     train_loader, val_ds, pad_multiple, scene_dims)
+    finally:
+        train_loader.close()
+        logger.close()
+
+
+def _loop(cfg, max_steps, device, state, resume_epoch, logger,
+          train_loader, val_ds, pad_multiple, scene_dims) -> List[Dict]:
+    # what a batch is follows the loader: a dataset that is not online
+    # gives wav batches whatever device_mix says
+    mode = train_loader.mix_mode
+    batch_kind = mode if mode in ("parts", "scene") else "wav"
+    extras = ()
+    if batch_kind == "scene":
+        from eabnet_tpu_torch.data.scene_mix import load_corpus_int16
+
+        ds = train_loader.ds
+        fs = int(ds.opt["audio"]["fs"])
+        extras = tuple(
+            torch.from_numpy(load_corpus_int16(root, names, fs)).to(device)
+            for root, names in ((ds.speech_root, ds.speech_list),
+                                (ds.noise_root, ds.noise_list)))
+        print(f"scene mode: device-resident corpus {extras[0].shape[0]} "
+              f"speech + {extras[1].shape[0]} noise files "
+              f"({sum(c.numel() * 2 for c in extras) / 1e6:.1f} MB)")
     val_loader = (BatchLoader(val_ds, 1, shuffle=False, drop_last=False,
                               pad_multiple=pad_multiple)
                   if val_ds is not None else None)
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, batch_kind, scene_dims)
     eval_step = make_eval_step(cfg)
 
     steps_per_epoch = max(1, len(train_loader))
@@ -111,41 +171,49 @@ def _train(cfg: ExperimentConfig, max_steps: Optional[int], device: str,
     history: List[Dict] = []
     window: Dict[str, List[float]] = {}
     t_last = time.time()
-    try:
-        for epoch in range(resume_epoch + 1, cfg.train.total_epoch):
-            for batch in train_loader.epoch(epoch):
-                t0 = time.perf_counter()
+    for epoch in range(resume_epoch + 1, cfg.train.total_epoch):
+        batches = train_loader.epoch(epoch)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            t0 = time.perf_counter()
+            if batch_kind == "wav":
                 state, losses = train_step(state,
                                            *_to_device(batch, device))
-                values = {k: float(v) for k, v in losses.items()}
-                history.append({"step": state.step, "epoch": epoch,
-                                **values,
-                                "seconds": time.perf_counter() - t0})
-                current_iter = state.step
-                for k, v in values.items():
-                    window.setdefault(k, []).append(v)
-                if current_iter % cfg.train.log_every == 0:
-                    means = {k: float(np.mean(v)) for k, v in window.items()}
-                    sps = cfg.train.log_every / max(time.time() - t_last,
-                                                    1e-9)
-                    print(f"iter {current_iter} epoch {epoch} loss "
-                          f"{means.get('final', float('nan')):.4f} "
-                          f"({sps:.2f} it/s)")
-                    logger.scalars("loss", means, current_iter)
-                    logger.scalars("perf", {"iters_per_sec": sps},
-                                   current_iter)
-                    window = {}
-                    t_last = time.time()
-                if current_iter % save_every == 0:
-                    save_checkpoint(state, epoch, cfg.train.checkpoint_dir)
-                if val_loader is not None and current_iter % valid_every == 0:
-                    validate(cfg, state, eval_step, val_loader, logger,
-                             current_iter)
-                if max_steps is not None and current_iter >= max_steps:
-                    save_checkpoint(state, epoch, cfg.train.checkpoint_dir)
-                    return history
-        save_checkpoint(state, cfg.train.total_epoch - 1,
-                        cfg.train.checkpoint_dir)
-        return history
-    finally:
-        logger.close()
+            else:
+                state, losses = train_step(
+                    state, batch_to_device(batch, device), *extras)
+            values = {k: float(v) for k, v in losses.items()}
+            history.append({"step": state.step, "epoch": epoch,
+                            **values,
+                            "seconds": time.perf_counter() - t0,
+                            "wait": t0 - t_wait,
+                            "bytes": _nbytes(batch)})
+            current_iter = state.step
+            for k, v in values.items():
+                window.setdefault(k, []).append(v)
+            if current_iter % cfg.train.log_every == 0:
+                means = {k: float(np.mean(v)) for k, v in window.items()}
+                sps = cfg.train.log_every / max(time.time() - t_last,
+                                                1e-9)
+                print(f"iter {current_iter} epoch {epoch} loss "
+                      f"{means.get('final', float('nan')):.4f} "
+                      f"({sps:.2f} it/s)")
+                logger.scalars("loss", means, current_iter)
+                logger.scalars("perf", {"iters_per_sec": sps},
+                               current_iter)
+                window = {}
+                t_last = time.time()
+            if current_iter % save_every == 0:
+                save_checkpoint(state, epoch, cfg.train.checkpoint_dir)
+            if val_loader is not None and current_iter % valid_every == 0:
+                validate(cfg, state, eval_step, val_loader, logger,
+                         current_iter)
+            if max_steps is not None and current_iter >= max_steps:
+                save_checkpoint(state, epoch, cfg.train.checkpoint_dir)
+                return history
+    save_checkpoint(state, cfg.train.total_epoch - 1,
+                    cfg.train.checkpoint_dir)
+    return history

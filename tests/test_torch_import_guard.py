@@ -1,5 +1,6 @@
 """The port stands alone: no module of eabnet_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax, msgpack or the JAX package."""
+chip_smoke.py, imports JAX, flax, optax, msgpack or the JAX package, in
+the parent process or in a spawned worker of the data loader."""
 
 import ast
 import os
@@ -37,7 +38,14 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.cli.common", "eabnet_tpu_torch.cli.test",
             "eabnet_tpu_torch.cli.score",
             "eabnet_tpu_torch.utils.convert_torch",
-            "eabnet_tpu_torch.utils.convert_args"} <= set(mods)
+            "eabnet_tpu_torch.utils.convert_args",
+            "eabnet_tpu_torch.data.rir", "eabnet_tpu_torch.data.rir_native",
+            "eabnet_tpu_torch.data.scenes", "eabnet_tpu_torch.data.mixer",
+            "eabnet_tpu_torch.data.synth_speech",
+            "eabnet_tpu_torch.data.device_mix",
+            "eabnet_tpu_torch.data.scene_mix", "eabnet_tpu_torch.cli.split",
+            "eabnet_tpu_torch.cli.datagen",
+            "eabnet_tpu_torch.cli.resample"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,6 +56,58 @@ def test_importing_the_port_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+WORKER_CODE = """
+import os, sys
+import numpy as np
+from eabnet_tpu_torch.config import DataConfig
+from eabnet_tpu_torch.data import datasets as PD
+from eabnet_tpu_torch.utils.audio_io import write_wav
+
+
+def main(root):
+    rng = np.random.default_rng(0)
+    for name in ("sp0.wav", "sp1.wav", "no0.wav"):
+        write_wav(os.path.join(root, name), 16000,
+                  rng.standard_normal(16000) * 0.1)
+    for name, text in (("sp", "sp0.wav\\nsp1.wav"), ("no", "no0.wav")):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    ds = PD.OnlineMcseDataset(DataConfig(
+        speech_root=root, noise_root=root, mcse_settings="v2",
+        speech_list=os.path.join(root, "sp"),
+        noise_list=os.path.join(root, "no"), clip_seconds=0.5,
+        rir_backend="auto"))
+    loader = PD.BatchLoader(ds, 1, num_workers=1)
+    try:
+        pool, args = loader._pool, ds.item_args(0)
+        pool.submit(PD._worker_synthesize, args).result()
+        pool.submit(PD._worker_synthesize_parts, args).result()
+        pool.submit(PD._worker_synthesize_scene,
+                    dict(args, speech_index=0)).result()
+        mods = pool.submit(eval, "sorted(__import__('sys').modules)").result()
+    finally:
+        loader.close()
+    print(sorted(m for m in mods if m.split(".")[0] in FORBIDDEN))
+    sys.exit(0 if "eabnet_tpu_torch.data.scene_mix" in mods and not [
+        m for m in mods if m.split(".")[0] in FORBIDDEN] else 1)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
+"""
+
+
+def test_a_loader_worker_loads_no_jax(tmp_path):
+    """A spawned worker of the port's loader, after a job of each of its
+    three worker functions, holds no JAX and no JAX package module."""
+    code = f"FORBIDDEN = {FORBIDDEN!r}\n" + WORKER_CODE
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -187,11 +187,12 @@ def test_train_step_dequantizes_int16():
     {"model": {"gagnet": {"norm_type": "BN"}}},
 ], ids=["bf16", "mesh", "device_mix", "bn"])
 def test_training_guard_refuses(tmp_path, change):
-    """The guard refuses meshes, on-device synthesis and compute dtypes
-    other than float32 and bfloat16; a bf16 config and a batch-norm model
-    pass it and train: one step on the CPU, and for the batch norm its
-    running statistics moved, which the checkpoint carries as
-    batch_stats."""
+    """The guard refuses meshes and compute dtypes other than float32 and
+    bfloat16, and an unknown device_mix mode with ValueError; a bf16
+    config, a device_mix mode (on the fake dataset, which is not online,
+    the loader gives wav batches) and a batch-norm model pass it and
+    train: one step on the CPU, and for the batch norm its running
+    statistics moved, which the checkpoint carries as batch_stats."""
     d = json.loads(tiny_cfg(tmp_path).to_json())
     for section, kv in change.items():
         for k, v in kv.items():
@@ -201,7 +202,7 @@ def test_training_guard_refuses(tmp_path, change):
                 d[section][k] = v
     cfg = ExperimentConfig.from_dict(d)
     bf16 = cfg.train.compute_dtype == "bfloat16"
-    if cfg.model.gagnet.norm_type != "BN" and not bf16:
+    if tuple(cfg.train.mesh_axes) != ("data",):
         with pytest.raises(NotImplementedError):
             require_training(cfg)
         return
@@ -210,13 +211,18 @@ def test_training_guard_refuses(tmp_path, change):
         d["train"]["compute_dtype"] = "float16"
         with pytest.raises(NotImplementedError):
             require_training(ExperimentConfig.from_dict(d))
+    if cfg.data.device_mix:
+        bad = json.loads(json.dumps(d))
+        bad["data"]["device_mix"] = "everything"
+        with pytest.raises(ValueError):
+            require_training(ExperimentConfig.from_dict(bad))
     from eabnet_tpu_torch.checkpoint import msgpack_restore
 
     hist = train(cfg, max_steps=1, device="cpu", tensorboard=False)
     assert [h["step"] for h in hist] == [1]
     assert all(np.isfinite(hist[0][k]) for k in ("eabnet", "postnet",
                                                  "final"))
-    if bf16:
+    if cfg.model.gagnet.norm_type != "BN":
         return
     with open(os.path.join(cfg.train.checkpoint_dir, "1.ckpt"), "rb") as f:
         stats = msgpack_restore(f.read())["state"]["batch_stats"]
@@ -226,10 +232,22 @@ def test_training_guard_refuses(tmp_path, change):
                                                               1.0)
 
 
-@pytest.mark.parametrize("data", [
-    DataConfig(dataset="mcse", train_set="online", mcse_settings="s.json"),
-    DataConfig(dataset="l3das23"),
-], ids=["online", "l3das23"])
-def test_make_dataset_refuses_what_it_does_not_load(data):
-    with pytest.raises(NotImplementedError):
-        PD.make_dataset(data)
+@pytest.mark.parametrize("what", ["online", "l3das23"])
+def test_make_dataset_refuses_what_it_does_not_load(tmp_path, what):
+    """l3das23 is refused; online synthesis loads: an OnlineMcseDataset
+    over the lists, with a packaged settings file, seeded per item."""
+    if what == "l3das23":
+        with pytest.raises(NotImplementedError):
+            PD.make_dataset(DataConfig(dataset="l3das23"))
+        return
+    (tmp_path / "sp").write_text("a.wav\nb.wav\nc.wav\n")
+    (tmp_path / "no").write_text("n.wav")
+    train, val = PD.make_dataset(DataConfig(
+        dataset="mcse", train_set="online", mcse_settings="v2",
+        speech_list=str(tmp_path / "sp"), noise_list=str(tmp_path / "no"),
+        speech_root="/s", noise_root="/n"), seed=4)
+    assert isinstance(train, PD.OnlineMcseDataset) and val is None
+    assert len(train) == 3 and len(train.opt["mic_array"]["mics"]) == 9
+    args = train.item_args(2, epoch=1)
+    assert args["speech_path"] == "/s/c.wav" and args["noise_paths"] == [
+        "/n/n.wav"] and args["seed"] == 4 * 1_000_003 + 7_919 + 2
