@@ -42,10 +42,10 @@ Phases, each announced with its elapsed seconds:
    00000's 701 offline STFT frames one at a time against the offline
    model (within 2e-4, the JAX soak tolerance; no kernel launched; the
    state's bytes after 8 frames those after 701); cli.stream on item 00000
-   and on the 7 val items in lockstep against the offline Enhancer
-   (correlation > 0.99, RMS ratio in (0.8, 1.25)); ms per frame (mean,
-   p50, p99) and kernel launches per frame at 1, 7 and 64 streams beside
-   the 10 ms hop.
+   (in a process of its own, beside the next run) and on the 7 val items
+   in lockstep against the offline Enhancer (correlation > 0.99, RMS
+   ratio in (0.8, 1.25)); ms per frame (mean, p50, p99) and kernel
+   launches per frame at 1, 7 and 64 streams beside the 10 ms hop.
 5c. lowp: bfloat16 and int8w serving. The bf16 variants of the two
    forward kernels against their plain bf16 versions at the release
    weights: the LSTM-BF forward at T = 701, L = 161 and 1,127, the TCM
@@ -197,6 +197,31 @@ Phases, each announced with its elapsed seconds:
    waited on the loader, host-to-device bytes, items/s, the mix's kernel
    time, one profiled step's idle share, peak memory; the resident
    corpus's bytes.
+11. ddp: data-parallel training and batch serving on the one card. The
+   kernels and the native RIR engine are built in this process first, so
+   the spawned ranks find them built; every rank sets cuDNN's
+   deterministic algorithms and TF32 off itself and trains under
+   float32_products. composed_9mic in float32 from 40000.params on
+   release/val_set, global batch 6, 3 steps, as (a) one process, (b)
+   train() in a spawned NCCL group of world 1 (the code path of a
+   multi-card run) and (c) two spawned gloo ranks on cuda:0, 3 rows each.
+   (b) equals (a) bit for bit (losses, every parameter after step 3); the
+   ranks of (c) hold the same parameter bits after every step; (c)'s
+   step-1 loss within 1e-5 of (a)'s and its step-1 gradients (the
+   all-reduced ones clipping sees) within atol 1e-5, rtol 1e-3 per tensor
+   (the JAX package's multi-device tolerance), its steps 2-3 within 3x the
+   spread of 3 runs of (a) from params one ulp away; each rank launches 1 +
+   1 LSTM-BF and 21 + 21 TCM-chain entries a step. Per rank: step walls,
+   the last step's share in its all-reduces (each timed with the card
+   synchronised around it), the 35 MB gradient all-reduce alone, peak
+   memory, seconds from the process's start to torch ready. The
+   flagship's online bf16 config (cLN, scene, batch 16 = 2 x 8, one loader
+   worker per rank) for 2 steps on two gloo ranks: step-1 loss within
+   1e-3 of the online phase's one-process step 1, each rank loading its
+   own corpus onto the card, 1 + 1 bf16 LSTM-BF training launches a step.
+   Enhancer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on the 7 val items
+   (padded to 8) for both released models in float32 and bf16: within
+   2e-5 of one replica, one forward's launches per replica, the walls.
 
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
@@ -261,6 +286,7 @@ STREAM_DIR = "build/chip_smoke_stream"
 STREAM_TOL = 2e-4
 STREAM_BATCHES = (1, 7, 64)
 STREAM_FRAMES = 30  # timed frames per batch of streams
+STREAM_FILE_TIMEOUT_S = 400  # cli.stream on one 7-s file, its own process
 TRAIN_T = 601  # frames of one 6-s training item (96,000 samples)
 TRAIN_GOLDEN = "tests/golden/torch_port_train_composed_9mic.npz"
 TRAIN_DIR = "build/chip_smoke_train"
@@ -859,18 +885,12 @@ def one_ulp_params(seed: int) -> bytes:
     return msgpack_serialize({"params": move(tree)})
 
 
-def train_run(name: str, cfg_dict: dict, max_steps: int,
-              params: bytes = None, start: str = None):
-    """train() on the card in build/chip_smoke_train/<name>, which starts
-    with a copy of the release 40000.params (or ``start``, another release
-    params file; or ``params``, the bytes of such a file); returns the step
-    losses (steps, 3) and records."""
+def stage_train_run(name: str, params: bytes = None,
+                    start: str = None) -> str:
+    """build/chip_smoke_train/<name>, made (once) with a copy of the
+    release 40000.params (or ``start``, another release params file; or
+    ``params``, the bytes of such a file)."""
     import shutil
-
-    import numpy as np
-
-    from eabnet_tpu_torch.config import ExperimentConfig
-    from eabnet_tpu_torch.train.trainer import train
 
     start = start or os.path.join(EXP, "40000.params")
     run = os.path.join(TRAIN_DIR, name)
@@ -882,11 +902,25 @@ def train_run(name: str, cfg_dict: dict, max_steps: int,
         else:
             with open(target, "wb") as f:
                 f.write(params)
+    return run
+
+
+def train_run(name: str, cfg_dict: dict, max_steps: int,
+              params: bytes = None, start: str = None,
+              device: str = "cuda"):
+    """train() on ``device`` in stage_train_run(name, params, start);
+    returns the step losses (steps, 3) and records."""
+    import numpy as np
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.train.trainer import train
+
+    run = stage_train_run(name, params, start)
     d = json.loads(json.dumps(cfg_dict))
     d["train"].update(checkpoint_dir=os.path.join(run, "ckpt"),
                       exp_root=run)
     hist = train(ExperimentConfig.from_dict(d), max_steps=max_steps,
-                 device="cuda", tensorboard=False)
+                 device=device, tensorboard=False)
     return np.array([[h[k] for k in LOSS_KEYS] for h in hist]), hist
 
 
@@ -1247,11 +1281,28 @@ def stream_phase(enh, smi: str) -> dict:
     # wav level, through the CLI as a user runs it
     shutil.rmtree(STREAM_DIR, ignore_errors=True)
     os.makedirs(STREAM_DIR)
+    # the file mode in a process of its own while this one streams the
+    # directory: each is host-bound on one core and leaves the card idle
+    # most of a frame, so the two take the time of one
     one = os.path.join(STREAM_DIR, "00000.wav")
-    stream_cli.main([os.path.join(VAL, "noisy", "00000.wav"), one,
-                     "--exp-root", EXP_CLN])
-    stream_cli.main([os.path.join(VAL, "noisy"),
-                     os.path.join(STREAM_DIR, "val"), "--exp-root", EXP_CLN])
+    file_run = subprocess.Popen(
+        [sys.executable, "-m", "eabnet_tpu_torch.cli.stream",
+         os.path.join(VAL, "noisy", "00000.wav"), one, "--exp-root",
+         EXP_CLN], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        stream_cli.main([os.path.join(VAL, "noisy"),
+                         os.path.join(STREAM_DIR, "val"), "--exp-root",
+                         EXP_CLN])
+        log = file_run.communicate(timeout=STREAM_FILE_TIMEOUT_S)[0]
+    finally:
+        if file_run.poll() is None:
+            file_run.kill()
+            file_run.communicate()
+    print(log.strip()[-2000:])
+    require(file_run.returncode == 0,
+            f"stream: cli.stream on one file exits 0 "
+            f"(exit {file_run.returncode})")
     enh.output = "esti"
     refs = enh.enhance_batch(noisy)
     wav_checks = []
@@ -3004,7 +3055,473 @@ def online_phase(smi: str) -> dict:
     del corpus
     return dict(entries=entries, launches=launches, modes=summary,
                 host_items_s=rate, native_err=native_err,
-                checks=checks)
+                checks=checks, paths=paths,
+                flagship_step1=hist[0]["final"])
+
+
+# ------------------------------------------------------------------- ddp
+DDP_BATCH, DDP_STEPS, DDP_WORLD = 6, 3, 2
+DDP_GRAD_ATOL, DDP_GRAD_RTOL = 1e-5, 1e-3  # tests/test_train_multichip.py
+DDP_ONLINE_STEPS, DDP_ONLINE_RTOL = 2, 1e-3
+DDP_SERVE_ATOL = 2e-5  # tests/test_inference_mesh.py:75
+DDP_RANK_TIMEOUT_S = 300
+
+
+def rank_settings():
+    """What each rank process sets itself (a spawned process inherits none
+    of the parent's flags): cuDNN's deterministic algorithms and no TF32
+    in convolutions or products."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def param_digest(model) -> int:
+    """A position-weighted sum of the parameters' bit patterns, on the
+    device (equal for equal bits; ~a millisecond, so the step walls keep
+    it out)."""
+    import torch
+
+    bits = torch.cat([p.detach().reshape(-1) for p in model.parameters()]
+                     ).view(torch.int32).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weights).sum())
+
+
+class recorded_steps:
+    """Around a train() run: the gradients the first step clips (the
+    global batch's, all-reduced in a group), a digest of the parameters
+    after every step, and, with ``profile_step``, that step (1-based)
+    timed with its all-reduces (``self.profile``: timed_step's)."""
+
+    def __init__(self, profile_step: int = 0):
+        self.profile_step = profile_step
+        self.profile = None
+
+    def __enter__(self):
+        from eabnet_tpu_torch.train import step as P
+        from eabnet_tpu_torch.train import trainer as T
+
+        self.grads, self.digests = {}, []
+        self._saved = (P.clip_by_global_norm, T.make_train_step)
+        clip, make = self._saved
+
+        def first_grads(grads, max_norm):
+            if not self.grads:
+                self.grads = {k: v.detach().cpu().numpy()
+                              for k, v in grads.items()}
+            return clip(grads, max_norm)
+
+        def digested(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(state, *batch):
+                if len(self.digests) + 1 == self.profile_step:
+                    out, self.profile = timed_step(
+                        lambda: step(state, *batch))
+                else:
+                    out = step(state, *batch)
+                self.digests.append(param_digest(state.model))
+                return out
+            return run
+
+        P.clip_by_global_norm, T.make_train_step = first_grads, digested
+        return self
+
+    def __exit__(self, *exc):
+        from eabnet_tpu_torch.train import step as P
+        from eabnet_tpu_torch.train import trainer as T
+
+        P.clip_by_global_norm, T.make_train_step = self._saved
+        return False
+
+
+def timed_step(fn):
+    """fn() (a train step) on the host clock, the card synchronised before
+    and after, with each all-reduce it makes timed alone (the card
+    synchronised around it: from its inputs ready to its result ready)
+    -> (its result, {step_ms, allreduce_ms, allreduce_calls})."""
+    import torch
+    import torch.distributed as dist
+
+    all_reduce, times = dist.all_reduce, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = all_reduce
+    return out, dict(step_ms=wall, allreduce_ms=sum(times),
+                     allreduce_calls=len(times))
+
+
+def allreduce_alone_ms(numel: int) -> float:
+    """A float32 all-reduce of ``numel`` entries on the card, staged as the
+    step stages it (to the collective's device and back), host clock, the
+    mean of 3 after one."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.parallel.mesh import all_reduced
+
+    buf = torch.zeros(numel, device="cuda")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduced(buf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times[1:]))
+
+
+def free_card(label: str) -> None:
+    """Give this process's cached device memory back before ranks start on
+    the same card (the earlier phases leave the caching allocator holding
+    tens of GB; a rank's cuDNN then fails to get its workspace)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"ddp: {label}: card memory free {free / 2 ** 30:.2f} of "
+        f"{total / 2 ** 30:.2f} GiB, this process holds "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+
+def ddp_train_rank(name: str, cfg_dict: dict, max_steps: int, device: str):
+    """One rank of a data-parallel run of train() (spawned): its losses,
+    step walls (the last step timed with its all-reduces: timed_step),
+    launches by C entry, the step-1 gradients (rank 0), the parameters' digest after
+    every step, a gradient-sized all-reduce alone, the peak memory, and
+    the seconds from the process's start to torch imported, through
+    train()."""
+    import torch
+
+    from eabnet_tpu_torch.kernels._build import load_library
+    from eabnet_tpu_torch.parallel.mesh import process_index
+    from eabnet_tpu_torch.utils.precision import float32_products
+
+    rank_settings()
+    load_library()
+    t_ready = time.perf_counter() - T0
+    zero_launches()
+    with recorded_steps(DDP_STEPS) as rec, float32_products(device):
+        losses, hist = train_run(name, cfg_dict, max_steps, device=device)
+    entries = read_entries()
+    numel = sum(v.size for v in rec.grads.values()) if rec.grads else 0
+    return dict(losses=losses, seconds=[h["seconds"] for h in hist],
+                entries=entries, digests=rec.digests,
+                grads=rec.grads if process_index() == 0 else None,
+                allreduce_alone_ms=allreduce_alone_ms(numel + 3),
+                buffer_mb=(numel + 3) * 4 / 1e6,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                ready_s=t_ready, trained_s=time.perf_counter() - T0,
+                **rec.profile)
+
+
+def ddp_online_rank(cfg_dict: dict, max_steps: int):
+    """One rank of the flagship's online bf16 run (spawned): losses, step
+    walls, loader waits, launches by C entry, the corpus bytes it loaded
+    onto its card, the peak memory."""
+    import torch
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.data import scene_mix
+    from eabnet_tpu_torch.kernels._build import load_library
+    from eabnet_tpu_torch.train.trainer import train
+    from eabnet_tpu_torch.utils.precision import float32_products
+
+    rank_settings()
+    load_library()
+    corpus, load = [], scene_mix.load_corpus_int16
+
+    def recorded(*args, **kwargs):
+        c = load(*args, **kwargs)
+        corpus.append(int(c.nbytes))
+        return c
+
+    scene_mix.load_corpus_int16 = recorded
+    zero_launches()
+    with float32_products("cuda:0"):
+        hist = train(ExperimentConfig.from_dict(cfg_dict),
+                     max_steps=max_steps, device="cuda:0", tensorboard=False)
+    return dict(losses=[[h[k] for k in LOSS_KEYS] for h in hist],
+                seconds=[h["seconds"] for h in hist],
+                wait=[h["wait"] for h in hist], entries=read_entries(),
+                corpus_bytes=corpus,
+                peak_bytes=torch.cuda.max_memory_allocated("cuda:0"))
+
+
+def queued_syncs(enh, rows: int, samples: int) -> list:
+    """The host syncs that torch's sync debug mode reports while every
+    replica's forward of a batch (``rows`` items of ``samples`` each per
+    replica, already on its device) is queued: each one would hold the
+    next replica's forward back behind this one's."""
+    import warnings
+
+    import torch
+
+    from eabnet_tpu_torch.utils.precision import float32_products
+
+    ins = [torch.zeros((rows, enh.cfg.model.eabnet.M, samples), device=d)
+           for d in enh.devices]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k, x in enumerate(ins):
+                with float32_products(x.device), torch.no_grad():
+                    enh._enhance(x, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's own notice ("a prototype feature") is not a sync
+    return [str(w.message)[:120] for w in caught
+            if "synchronizing" in str(w.message)
+            and "prototype" not in str(w.message)]
+
+
+def ddp_serving(smi: str) -> dict:
+    """Enhancer(mesh=make_mesh(devices=[cuda:0, cuda:0])) against the
+    one-replica Enhancer on the 7 val items (padded to 8, 4 per replica),
+    both released models in float32 and bf16: outputs within 2e-5, the
+    launches per replica, no host sync while the replicas' forwards are
+    queued, the walls (min of 3 after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.parallel import make_mesh
+
+    _, noisy, _ = read_set(VAL)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    out = {}
+    for exp, per_forward in ((EXP, (1, 21, 0, 0)), (EXP_CLN, (1, 0, 0, 0))):
+        for dtype in ("float32", "bfloat16"):
+            label = f"{os.path.basename(exp)} {dtype}"
+            walls = {}
+            outs = {}
+            for kind, kw in (("one", {}), ("mesh", {"mesh": mesh})):
+                enh = load_enhancer(exp, compute_dtype=dtype, device="cuda",
+                                    **kw)
+                enh.enhance_batch(noisy)  # warm-up at the batch shape
+                if kind == "mesh":
+                    zero_launches()
+                    outs[kind] = enh.enhance_batch(noisy)
+                    torch.cuda.synchronize()
+                    entries = read_entries()
+                    samples = -(-(max(x.shape[-1] for x in noisy)
+                                  + enh.cfg.stft.fft_num // 2 + 1)
+                                // enh.bucket) * enh.bucket
+                    syncs = queued_syncs(enh, 4, samples)
+                else:
+                    outs[kind] = enh.enhance_batch(noisy)
+                ws = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    enh.enhance_batch(noisy)
+                    torch.cuda.synchronize()
+                    ws.append(time.perf_counter() - t0)
+                walls[kind] = min(ws)
+                del enh
+            err = max(float(np.abs(a - b).max())
+                      for a, b in zip(outs["mesh"], outs["one"]))
+            want = {k: 2 * v for k, v in want_entries(
+                dict(zip(LAUNCH_KEYS, per_forward)),
+                dtype == "bfloat16").items()}
+            say(f"ddp serve {label}: 7 items over 2 replicas on cuda:0 "
+                f"against one replica: max |diff| {err:.3e}; launches "
+                f"{entries} (2 replicas); host syncs while the forwards "
+                f"are queued {len(syncs)} {syncs[:2]}; wall "
+                f"{walls['mesh'] * 1e3:.2f} ms, one replica "
+                f"{walls['one'] * 1e3:.2f} ms ({smi})")
+            require(not syncs, f"ddp serve {label}: no host sync while "
+                    "the replicas' forwards are queued")
+            require(err <= DDP_SERVE_ATOL,
+                    f"ddp serve {label}: within {DDP_SERVE_ATOL:g} of one "
+                    f"replica")
+            require(entries == want, f"ddp serve {label}: launches per "
+                    f"replica as one forward's ({want}, 2 replicas)")
+            out[label] = dict(err=err, entries=entries, syncs=len(syncs),
+                              wall_ms=walls["mesh"] * 1e3,
+                              one_wall_ms=walls["one"] * 1e3)
+    return out
+
+
+def ddp_phase(smi: str, online_paths: dict, online_step1: float) -> dict:
+    """Data-parallel training and batch serving on the one card (PERF.md
+    §4's ddp cell): composed_9mic float32 from 40000.params, global batch
+    6 of release/val_set, 3 steps as (a) one process, (b) NCCL at world 1
+    and (c) two gloo ranks on cuda:0; the flagship's online bf16 run on
+    two gloo ranks; Enhancer(mesh=...) with two replicas on cuda:0."""
+    import numpy as np
+
+    from eabnet_tpu_torch.parallel import launch
+    from eabnet_tpu_torch.train.checkpoint import load_checkpoint
+    from eabnet_tpu_torch.train.step import create_train_state
+    from eabnet_tpu_torch.config import ExperimentConfig
+
+    launch.build_once(cuda=True)  # the ranks find the libraries built
+    golden = np.load(TRAIN_GOLDEN)
+    cfg_dict = json.loads(str(golden["config"]))
+    cfg_dict["train"]["batch_size"] = DDP_BATCH
+    last = 40000 + DDP_STEPS
+    for name in ("ddp_a", "ddp_nccl", "ddp_gloo"):
+        stage_train_run(name)
+
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_launches()
+        with recorded_steps() as rec_a:
+            a, hist_a = train_run("ddp_a", cfg_dict, last)
+        a_entries = read_entries()
+        spreads = np.array([
+            np.abs(train_run(f"ddp_ulp{seed}", cfg_dict, last,
+                             params=one_ulp_params(seed))[0] - a) / np.abs(a)
+            for seed in range(TRAIN_ULP_RUNS)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tol = loss_tolerance(spreads.max(axis=0))
+    want = want_entries(dict(zip(LAUNCH_KEYS, (DDP_STEPS, 21 * DDP_STEPS,
+                                               DDP_STEPS, 21 * DDP_STEPS))),
+                        False, True)
+    say(f"ddp (a) one process: losses {a.tolist()}, step walls "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist_a]} ms, launches "
+        f"{a_entries}; one-ulp spread per step {spreads.max(axis=0).tolist()}")
+    free_card("before the NCCL rank")
+    (b,) = launch.spawn(ddp_train_rank, 1, ("ddp_nccl", cfg_dict, last,
+                                            "cuda"), backend="nccl",
+                        timeout_s=DDP_RANK_TIMEOUT_S)
+    free_card("before the gloo ranks")
+    c = launch.spawn(ddp_train_rank, DDP_WORLD, ("ddp_gloo", cfg_dict, last,
+                                                 "cuda:0"), backend="gloo",
+                     timeout_s=DDP_RANK_TIMEOUT_S)
+    for label, ranks in (("(b) NCCL world 1", [b]),
+                         ("(c) gloo world 2", c)):
+        for r, v in enumerate(ranks):
+            say(f"ddp {label} rank {r}: losses {v['losses'].tolist()}, step "
+                f"walls {[round(x * 1e3, 2) for x in v['seconds']]} ms "
+                f"(the last timed with its all-reduces), launches "
+                f"{v['entries']}; process start to torch ready "
+                f"{v['ready_s']:.1f} s, to trained {v['trained_s']:.1f} s; "
+                f"timed step {v['step_ms']:.2f} ms, its "
+                f"{v['allreduce_calls']} all-reduces "
+                f"{v['allreduce_ms']:.2f} ms "
+                f"({v['allreduce_ms'] / v['step_ms']:.3f} of the step), a "
+                f"{v['buffer_mb']:.1f} MB "
+                f"all-reduce alone {v['allreduce_alone_ms']:.2f} ms, peak "
+                f"{v['peak_bytes'] / 2 ** 30:.2f} GiB ({smi})")
+            require(v["entries"] == want,
+                    f"ddp {label} rank {r}: 1 + 1 LSTM-BF and 21 + 21 "
+                    f"TCM-chain launches per step")
+    # (b) equals (a) bit for bit: losses and every parameter
+    cfg = ExperimentConfig.from_dict(cfg_dict)
+
+    def final_params(name):
+        state = load_checkpoint(os.path.join(TRAIN_DIR, name, "ckpt",
+                                             f"{last}.ckpt"),
+                                create_train_state(cfg, "cuda"), cfg)[0]
+        return {k: p.detach().cpu().numpy()
+                for k, p in state.model.named_parameters()}
+
+    pa, pb = final_params("ddp_a"), final_params("ddp_nccl")
+    same_b = (b["losses"].tobytes() == a.tobytes()
+              and all(pa[k].tobytes() == pb[k].tobytes() for k in pa))
+    require(same_b, "ddp (b): NCCL at world 1 equals one process bit for "
+            f"bit (losses and every parameter after step {DDP_STEPS})")
+    require(c[0]["digests"] == c[1]["digests"]
+            and len(c[0]["digests"]) == DDP_STEPS,
+            "ddp (c): the two ranks hold the same parameters bit for bit "
+            "after every step")
+    rel = np.abs(c[0]["losses"] - a) / np.abs(a)
+    ga, gc = rec_a.grads, c[0]["grads"]
+    bad = [k for k in ga if not np.allclose(gc[k], ga[k], atol=DDP_GRAD_ATOL,
+                                            rtol=DDP_GRAD_RTOL)]
+    worst = max(ga, key=lambda k: float(np.abs(gc[k] - ga[k]).max()))
+    say(f"ddp (c): losses relative to (a) per step {rel.tolist()}, limits "
+        f"{tol.tolist()}; step-1 gradients outside atol {DDP_GRAD_ATOL:g} "
+        f"rtol {DDP_GRAD_RTOL:g}: {bad} of {len(ga)} (largest |diff| "
+        f"{float(np.abs(gc[worst] - ga[worst]).max()):.3e} in {worst})")
+    require(bool((rel[0] <= TRAIN_LOSS_RTOL).all()) and not bad,
+            f"ddp (c): step-1 loss within {TRAIN_LOSS_RTOL:g} and gradients "
+            f"within atol {DDP_GRAD_ATOL:g}, rtol {DDP_GRAD_RTOL:g} of one "
+            f"process")
+    require(bool((rel[1:] <= tol[1:DDP_STEPS]).all()),
+            f"ddp (c): step 2-{DDP_STEPS} losses within "
+            f"{TRAIN_SPREAD_MARGIN:g} x the one-ulp spread at batch "
+            f"{DDP_BATCH}")
+
+    # the flagship's online bf16 config on two gloo ranks, 1 worker each
+    d = flagship_config(online_paths, "ddp_online", num_workers=1)
+    d["train"]["validate_once_before_train"] = False
+    free_card("before the online ranks")
+    online = launch.spawn(ddp_online_rank, DDP_WORLD,
+                          (d, DDP_ONLINE_STEPS), backend="gloo",
+                          timeout_s=DDP_RANK_TIMEOUT_S)
+    want_online = {"lstm_bf_fwd_train_bf16": DDP_ONLINE_STEPS,
+                   "lstm_bf_bwd_bf16": DDP_ONLINE_STEPS}
+    for r, v in enumerate(online):
+        say(f"ddp online rank {r}: losses {v['losses']}, step walls "
+            f"{[round(x * 1e3, 1) for x in v['seconds']]} ms, loader waits "
+            f"{[round(x * 1e3, 1) for x in v['wait']]} ms, launches "
+            f"{v['entries']}, corpus on its card {v['corpus_bytes']} bytes, "
+            f"peak {v['peak_bytes'] / 2 ** 30:.2f} GiB ({smi})")
+        require(v["entries"] == want_online,
+                f"ddp online rank {r}: 1 + 1 bf16 LSTM-BF training launches "
+                f"per step")
+        require(len(v["corpus_bytes"]) == 2 and min(v["corpus_bytes"]) > 0,
+                f"ddp online rank {r}: its own resident corpus")
+    l1 = online[0]["losses"][0][2]
+    say(f"ddp online: step-1 loss {l1!r}, one process at batch "
+        f"{ONLINE_BATCH} {online_step1!r} (relative "
+        f"{abs(l1 - online_step1) / abs(online_step1):.3e})")
+    require(abs(l1 - online_step1) <= DDP_ONLINE_RTOL * abs(online_step1)
+            and online[0]["losses"] == online[1]["losses"],
+            f"ddp online: step-1 loss within {DDP_ONLINE_RTOL:g} of one "
+            f"process, the same on both ranks")
+
+    serving = ddp_serving(smi)
+    keep = ("seconds", "step_ms", "allreduce_ms", "allreduce_calls",
+            "allreduce_alone_ms", "buffer_mb", "peak_bytes", "ready_s",
+            "trained_s")
+    return dict(
+        a=dict(losses=a.tolist(), seconds=[h["seconds"] for h in hist_a]),
+        spread=spreads.max(axis=0).tolist(), rel=rel.tolist(),
+        grads_outside=bad,
+        nccl=[{k: b[k] for k in keep}],
+        gloo=[{k: v[k] for k in keep} for v in c],
+        online=[{k: v[k] for k in ("losses", "seconds", "wait",
+                                   "corpus_bytes", "peak_bytes")}
+                for v in online],
+        serving=serving,
+        entries={"ddp_a": a_entries, "ddp_nccl": b["entries"],
+                 **{f"ddp_gloo_rank{r}": v["entries"]
+                    for r, v in enumerate(c)},
+                 **{f"ddp_online_rank{r}": v["entries"]
+                    for r, v in enumerate(online)},
+                 **{f"ddp_serve {k}": v["entries"]
+                    for k, v in serving.items()}})
 
 
 def main() -> int:
@@ -3260,6 +3777,11 @@ def main() -> int:
         online = online_phase(smi)
         say(f"online: phase {time.perf_counter() - t_phase:.1f} s")
 
+    with Phase("ddp"):
+        t_phase = time.perf_counter()
+        ddp = ddp_phase(smi, online["paths"], online["flagship_step1"])
+        say(f"ddp: phase {time.perf_counter() - t_phase:.1f} s")
+
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
@@ -3436,6 +3958,7 @@ def main() -> int:
         "items_per_s", "lowp")}
     record["online"] = {f: online[f] for f in (
         "modes", "host_items_s", "native_err", "checks")}
+    record["ddp"] = {k: v for k, v in ddp.items() if k != "entries"}
     record["lowp"] = {p: {f: v[f] for f in (
         "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
         "idle", "item")} for p, v in lowp.items()}
@@ -3451,7 +3974,7 @@ def main() -> int:
              "eval lowp": evaluated["lowp_entries"],
              "train_bf16": trained16["entries"],
              "train_bf16_cln": trained16["cln_entries"],
-             "online": online["entries"]}
+             "online": online["entries"], **ddp["entries"]}
     for k in record["kernels"]:
         entries, main_path = ROW_ENTRIES[k["name"]]
         k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)

@@ -2,9 +2,12 @@
 
     python -m eabnet_tpu_torch.cli.enhance in.wav out.wav \
         --exp-root release/composed_9mic [--output-stage esti0] \
-        [--compute-dtype bfloat16] [--device cpu]
+        [--compute-dtype bfloat16] [--device cpu] [--mesh]
 
 The input may be a directory of wavs; the output is then a directory.
+``--mesh`` serves batches over every visible card (one replica per card,
+``Enhancer(mesh=...)``), in batches of the mesh's size unless
+``--batch-size`` says otherwise.
 """
 
 from __future__ import annotations
@@ -34,8 +37,12 @@ def main(argv=None):
                         "(STFT/iSTFT stay float32)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
-    parser.add_argument("--batch-size", type=int, default=1,
-                        help="files per batch in directory mode")
+    parser.add_argument("--mesh", action="store_true",
+                        help="serve over every visible card: one replica "
+                        "per card, each batch split over them")
+    parser.add_argument("--batch-size", type=int, default=None,
+                        help="files per batch in directory mode (default: "
+                        "1, or the mesh's size with --mesh)")
     parser.add_argument("--mic-permutation", default=None,
                         help="comma-separated capture-channel order")
     args = parser.parse_args(argv)
@@ -45,18 +52,29 @@ def main(argv=None):
     perm = None
     if args.mic_permutation:
         perm = [int(x) for x in args.mic_permutation.split(",")]
+    mesh = None
+    if args.mesh:
+        from eabnet_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(devices=None if args.device == "cuda"
+                         else [args.device])
     enhancer = load_enhancer(args.exp_root, args.ckpt,
                              output=args.output_stage,
                              compute_dtype=args.compute_dtype,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
+    bs = args.batch_size or (mesh.size if mesh else 1)
+    if mesh is not None and bs % mesh.size:
+        # a smaller chunk would leave replicas computing padding
+        bs = -(-bs // mesh.size) * mesh.size
+        print(f"--batch-size rounded up to {bs}, a multiple of the mesh's "
+              f"{mesh.size} devices")
     if os.path.isdir(args.input):
         os.makedirs(args.output, exist_ok=True)
         names = sorted(n for n in os.listdir(args.input)
                        if n.endswith(".wav"))
         enhancer.enhance_files([os.path.join(args.input, n) for n in names],
                                [os.path.join(args.output, n) for n in names],
-                               mic_permutation=perm,
-                               batch_size=args.batch_size)
+                               mic_permutation=perm, batch_size=bs)
     else:
         enhancer.enhance_file(args.input, args.output, mic_permutation=perm)
 

@@ -178,9 +178,10 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training settings, acted on by ``train.trainer.train`` on one
-    device. ``compute_dtype`` must be "float32" and ``mesh_axes``
-    ("data",) (``require_training``). ``remat`` and ``remat_policy`` are
+    """Training settings, acted on by ``train.trainer.train``.
+    ``compute_dtype`` must be "float32" or "bfloat16" and ``mesh_axes``
+    ("data",) (``require_training``): one card, or one rank per card of
+    a data-parallel process group over ``batch_size``. ``remat`` and ``remat_policy`` are
     read and not acted on: they trade memory for recompute and do not
     change results."""
 
@@ -269,11 +270,12 @@ def require_slice(cfg) -> None:
 
 
 def require_training(cfg: ExperimentConfig) -> None:
-    """Refuse a training configuration this slice of the port does not
-    run (beside ``require_slice``, which the models apply): a compute
-    dtype other than float32 and bfloat16, and meshes beyond one device's
-    data axis. An unknown ``device_mix`` mode raises ``ValueError``, as in
-    the JAX package."""
+    """Refuse a training configuration the port does not run (beside
+    ``require_slice``, which the models apply): a compute dtype other than
+    float32 and bfloat16, and mesh axes other than ("data",). The data
+    axis runs on one card or, inside a process group, on every rank
+    (``train/trainer.py``). An unknown ``device_mix`` mode raises
+    ``ValueError``, as in the JAX package."""
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
@@ -282,5 +284,6 @@ def require_training(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown device_mix mode {cfg.data.device_mix!r}")
     if tuple(cfg.train.mesh_axes) != ("data",):
         raise NotImplementedError(
-            f"mesh_axes={cfg.train.mesh_axes!r}: the port trains on one "
-            "device; multi-card training is a later slice")
+            f"mesh_axes={cfg.train.mesh_axes!r}: the port trains over the "
+            "'data' axis only; frequency-axis model parallelism is a later "
+            "slice (ROADMAP)")

@@ -303,6 +303,15 @@ class BatchLoader:
       (``data/scene_mix.py``).
 
     Other datasets ignore ``device_mix``. ``close()`` stops the workers.
+
+    ``rank`` of ``world`` (the ranks of a data-parallel run) draws the
+    same global batches of ``batch_size`` rows as one process, and takes
+    rows [rank * B / world, (rank + 1) * B / world) of each: it reads or
+    synthesizes only those, with the item seeds one process would use, and
+    ``len()`` is the same on every rank. Its rows are padded to their own
+    longest (the data-parallel step pads them to the global batch's).
+    ``shard_index``/``shard_count`` instead give each host a contiguous
+    shard of the dataset of its own.
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 0,
@@ -311,9 +320,13 @@ class BatchLoader:
                  shard_index: int = 0, shard_count: int = 1,
                  pad_multiple: int = 1, device_mix=False,
                  mix_quantize: bool = False, rir_pad: int = 0,
-                 device="cuda"):
+                 device="cuda", rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not divide over "
+                             f"{world} ranks")
         self.ds = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.pad_multiple = max(1, int(pad_multiple))
         mode = {True: "loader", False: None}.get(device_mix, device_mix)
         if mode not in _WORKERS:
@@ -361,10 +374,17 @@ class BatchLoader:
         per = len(self.ds) // self.shard_count  # contiguous shard per host
         return idx[self.shard_index * per:(self.shard_index + 1) * per]
 
+    def _rows(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch."""
+        n = len(batch)
+        return batch[self.rank * n // self.world:
+                     (self.rank + 1) * n // self.world]
+
     def epoch(self, epoch: int = 0) -> Iterator:
         idx = self._epoch_indices(epoch)
         nb = len(self)
-        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
+        batches = [self._rows(idx[i * self.batch_size:
+                                  (i + 1) * self.batch_size])
                    for i in range(nb)]
         if not hasattr(self.ds, "item_args"):
             for b in batches:

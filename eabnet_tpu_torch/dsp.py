@@ -59,18 +59,28 @@ def _window(win_size: int, n_fft: int, device) -> torch.Tensor:
     return window
 
 
+@functools.lru_cache(maxsize=16)
+def _constants(n_fft: int, win_size: int, device: torch.device,
+               inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(window, DFT or inverse DFT basis) on ``device``, made once per
+    device: a copy from host memory inside a forward would make the host
+    wait for the device's queue (and serialise the replicas of a mesh,
+    ``inference.py``). Read only."""
+    bases = _idft_bases(n_fft) if inverse else _dft_bases(n_fft)
+    return (_window(win_size, n_fft, device),
+            torch.as_tensor(bases, dtype=torch.float32, device=device))
+
+
 def stft(wav: torch.Tensor, n_fft: int = 320, hop: int = 160,
          win_size: Optional[int] = None) -> torch.Tensor:
     """Onesided STFT of ``wav (..., N)`` -> ``(..., T, F, 2)``."""
     win_size = win_size or n_fft
-    window = _window(win_size, n_fft, wav.device)
+    window, basis = _constants(n_fft, win_size, wav.device, False)
     lead = wav.shape[:-1]
     pad = n_fft // 2
     x = F.pad(wav.float().reshape(-1, 1, wav.shape[-1]), (pad, pad),
               mode="reflect").reshape(*lead, -1)
     frames = x.unfold(-1, n_fft, hop) * window  # (..., T, n_fft)
-    basis = torch.as_tensor(_dft_bases(n_fft), dtype=torch.float32,
-                            device=wav.device)
     spec = frames @ basis
     f = n_fft // 2 + 1
     return torch.stack([spec[..., :f], spec[..., f:]], dim=-1)
@@ -99,9 +109,7 @@ def istft(spec: torch.Tensor, n_fft: int = 320, hop: int = 160,
     """Inverse of :func:`stft`: ``(..., T, F, 2)`` -> ``(..., N)``; the
     windowed overlap-add divided by the overlap-added squared window."""
     win_size = win_size or n_fft
-    window = _window(win_size, n_fft, spec.device)
-    basis = torch.as_tensor(_idft_bases(n_fft), dtype=torch.float32,
-                            device=spec.device)
+    window, basis = _constants(n_fft, win_size, spec.device, True)
     t = spec.shape[-3]
     ri = torch.cat([spec[..., 0], spec[..., 1]], dim=-1)  # (..., T, 2F)
     frames = (ri @ basis) * window

@@ -16,6 +16,16 @@ whole model in bf16 (the kernels' bf16 variants on the card); or
 ``"int8w"``, weights-only int8 (``utils/quantize.py``) kept packed on the
 device and dequantized to bf16 inside each call. The STFT front end and
 the iSTFT run in float32 in every mode.
+
+``mesh`` (``parallel.make_mesh``) serves batches over devices, as the JAX
+package's Enhancer shards a batch over a mesh's ``data`` axis: one replica
+of the model (packed per replica in int8w) on each device of that axis;
+the batch is padded to a multiple of the axis's size, slice k runs on
+device k, and the outputs come back in order. The slices are issued from
+one thread: the inputs are copied up first, then every replica's forward
+is queued (the forwards hold no host sync, and each card runs its own
+queue), then the outputs are read. ``shard_freq`` (frequency-axis model
+parallelism) is not ported (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -50,7 +60,10 @@ class Enhancer:
     picks the stage: ``"esti"`` (beamformer + post-filter) or ``"esti0"``
     (beamformer alone). ``compute_dtype``: see the module doc; in
     ``"int8w"`` the model's own parameters live on the meta device and the
-    packed ones (``self.packed``) on ``device``.
+    packed ones (``self.packed``) on ``device``. With a ``mesh``,
+    ``device`` is unused: ``self.replicas`` holds one (model, packed) per
+    device of the mesh's ``data`` axis, and ``self.model``/``self.packed``
+    are the first.
     """
 
     def __init__(self, cfg: ExperimentConfig, params: dict,
@@ -67,10 +80,18 @@ class Enhancer:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {compute_dtype!r}")
-        if mesh is not None or shard_freq:
+        if shard_freq:
             raise NotImplementedError(
-                "mesh / shard_freq: multi-card serving is a later slice of "
-                "the port")
+                "shard_freq: frequency-axis model parallelism is not ported "
+                "(ROADMAP §1, multi-card)")
+        devices = [device]
+        if mesh is not None:
+            if mesh.size != mesh.shape.get("data", 0):
+                raise NotImplementedError(
+                    f"mesh {mesh.shape}: the port serves over a 'data' axis "
+                    "only; frequency-axis model parallelism is not ported "
+                    "(ROADMAP §1, multi-card)")
+            devices = list(mesh.devices.flat)
         if "BN" in (cfg.model.eabnet.norm_type, cfg.model.gagnet.norm_type):
             raise NotImplementedError(
                 "norm_type='BN': the Enhancer applies params only, as the "
@@ -79,26 +100,32 @@ class Enhancer:
         self.cfg = cfg
         self.output = output
         self.pad_mode = pad_mode
-        self.device = torch.device(device)
+        self.device = torch.device(devices[0])
         self.bucket = max(1, int(bucket_seconds * cfg.stft.sr))
         self.compute_dtype = compute_dtype
         self.dtype = (torch.float32 if compute_dtype == "float32"
                       else torch.bfloat16)
-        self.packed = None
         if compute_dtype == "int8w":
-            self.model = build_model(cfg.model).to("meta").eval()
-            self.packed = PackedWeights(pack_for_module(
-                self.model, quantize_weights_int8(params)), self.device)
+            model = build_model(cfg.model).to("meta").eval()
+            packed = pack_for_module(model, quantize_weights_int8(params))
+            self.replicas = [(model, PackedWeights(packed, torch.device(d)))
+                             for d in devices]
         else:
-            self.model = load_jax_params(build_model(cfg.model), params)
-            self.model.to(self.device, self.dtype).eval()
+            self.replicas = [(load_jax_params(build_model(cfg.model), params)
+                              .to(d, self.dtype).eval(), None)
+                             for d in devices]
+        self.model, self.packed = self.replicas[0]
+        self.devices = [torch.device(d) for d in devices]
+        self._batch_quantum = len(self.replicas)
 
     def param_bytes(self) -> int:
-        """Bytes of the parameters resident on ``device``: the model's in
-        float32 and bfloat16, the packed values and scales in int8w."""
+        """Bytes of the parameters resident on the devices: the model's in
+        float32 and bfloat16, the packed values and scales in int8w, summed
+        over the replicas."""
         if self.packed is not None:
-            return self.packed.nbytes()
-        return sum(p.nbytes for p in self.model.parameters())
+            return sum(p.nbytes() for _, p in self.replicas)
+        return sum(p.nbytes for m, _ in self.replicas
+                   for p in m.parameters())
 
     @torch.no_grad()
     def enhance_tensor(self, batch: torch.Tensor) -> torch.Tensor:
@@ -107,15 +134,17 @@ class Enhancer:
         with float32_products(batch.device):
             return self._enhance(batch)
 
-    def _enhance(self, batch: torch.Tensor) -> torch.Tensor:
+    def _enhance(self, batch: torch.Tensor, replica: int = 0
+                 ) -> torch.Tensor:
+        model, packed = self.replicas[replica]
         noisy_stft, _ = prepare_data(batch, None, self.cfg.stft)
         noisy_stft = noisy_stft.to(self.dtype)
-        if self.packed is not None:
+        if packed is not None:
             # no parameter is tied, so the tied-weight search is skipped
-            out = functional_call(self.model, self.packed.dequantize(
-                self.dtype), (noisy_stft,), tie_weights=False)
+            out = functional_call(model, packed.dequantize(self.dtype),
+                                  (noisy_stft,), tie_weights=False)
         else:
-            out = self.model(noisy_stft)
+            out = model(noisy_stft)
         esti = out[self.output].float()
         return stft_to_wav(to_reference_layout(esti), self.cfg.stft)
 
@@ -147,9 +176,26 @@ class Enhancer:
         padded = -(-(max(lengths) + tail) // self.bucket) * self.bucket
         batch = np.stack([np.pad(w, ((0, 0), (0, padded - w.shape[-1])))
                           for w in wavs]).astype(np.float32)
-        out = self.enhance_tensor(torch.from_numpy(batch).to(self.device))
-        out = out.cpu().numpy()
+        out = self._enhance_slices(batch)
         return [out[i][:n] for i, n in enumerate(lengths)]
+
+    @torch.no_grad()
+    def _enhance_slices(self, batch: np.ndarray) -> np.ndarray:
+        """The batch padded to a multiple of the replicas, slice k through
+        replica k (one slice without a mesh); every input copied up before
+        any forward is queued, and no output read before every forward
+        is."""
+        q = self._batch_quantum
+        rows = -(-batch.shape[0] // q)
+        batch = np.pad(batch, ((0, rows * q - batch.shape[0]), (0, 0),
+                               (0, 0)))
+        ins = [torch.from_numpy(batch[k * rows:(k + 1) * rows]).to(dev)
+               for k, dev in enumerate(self.devices)]
+        outs = []
+        for k, x in enumerate(ins):
+            with float32_products(x.device):
+                outs.append(self._enhance(x, k))
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def _read(self, path: str) -> np.ndarray:
         sr, noisy = read_wav(path)
@@ -161,10 +207,12 @@ class Enhancer:
 
     def enhance_files(self, in_paths, out_paths,
                       mic_permutation: Optional[list] = None,
-                      batch_size: int = 1) -> None:
-        """Enhance many files in batches of ``batch_size``."""
+                      batch_size: Optional[int] = None) -> None:
+        """Enhance many files in batches of ``batch_size`` (default: the
+        mesh's ``data`` axis, 1 without a mesh)."""
         if len(in_paths) != len(out_paths):
             raise ValueError("in_paths and out_paths must align")
+        batch_size = batch_size or self._batch_quantum
         for lo in range(0, len(in_paths), batch_size):
             outs = self.enhance_batch(
                 [self._read(p) for p in in_paths[lo:lo + batch_size]],

@@ -2,12 +2,16 @@
 
 The JAX package's ``losses/losses.py``: spectra in the (B, T, F, 2)
 layout, a dense (B, T) 0/1 frame mask from :func:`frame_mask`, and the
-composite loss of the composed model.
+composite loss of the composed model. Each loss divides by the valid
+frames of the batch, ``sum(mask)``, or by ``frames`` where given: a rank
+of a data-parallel step passes the global batch's count, so that its
+loss is its share of the global batch's and the ranks' gradients sum to
+the global batch's gradient (``train/step.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -30,12 +34,18 @@ def safe_mag(x: torch.Tensor) -> torch.Tensor:
         nonzero, sq, torch.ones_like(sq))), torch.zeros_like(sq))
 
 
+def _frames(mask: torch.Tensor, frames: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    return torch.sum(mask) if frames is None else frames
+
+
 def com_mag_mse_loss(esti: torch.Tensor, label: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor,
+                     frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """0.5 * (masked magnitude MSE + masked RI MSE); esti, label
     (B, T, F, 2), mask (B, T)."""
     m = mask[:, :, None]
-    denom_mag = torch.sum(m) * esti.shape[2]
+    denom_mag = _frames(mask, frames) * esti.shape[2]
     loss_mag = torch.sum(torch.square(safe_mag(esti) - safe_mag(label))
                          * m) / denom_mag
     # the RI mask counts both real and imaginary entries
@@ -46,11 +56,13 @@ def com_mag_mse_loss(esti: torch.Tensor, label: torch.Tensor,
 
 def stagewise_com_mag_mse_loss(esti_list: Sequence[torch.Tensor],
                                label: torch.Tensor, mask: torch.Tensor,
-                               alpha_mid: float = 0.1) -> torch.Tensor:
+                               alpha_mid: float = 0.1,
+                               frames: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Weighted multi-stage loss: ``alpha_mid`` on the intermediate stages,
     1.0 on the last."""
     m = mask[:, :, None]
-    denom = torch.sum(m) * label.shape[2]
+    denom = _frames(mask, frames) * label.shape[2]
     mag_l = safe_mag(label)
     loss_ri, loss_mag = 0.0, 0.0
     n = len(esti_list)
@@ -64,8 +76,11 @@ def stagewise_com_mag_mse_loss(esti_list: Sequence[torch.Tensor],
 
 
 def eabnet_with_postnet_loss(output: Dict, label: torch.Tensor,
-                             mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                             mask: torch.Tensor,
+                             frames: Optional[torch.Tensor] = None
+                             ) -> Dict[str, torch.Tensor]:
     """{eabnet, postnet, final} of the composed model's output."""
-    loss0 = com_mag_mse_loss(output["esti0"], label, mask)
-    loss1 = stagewise_com_mag_mse_loss(output["esti1"], label, mask)
+    loss0 = com_mag_mse_loss(output["esti0"], label, mask, frames)
+    loss1 = stagewise_com_mag_mse_loss(output["esti1"], label, mask,
+                                       frames=frames)
     return {"eabnet": loss0, "postnet": loss1, "final": loss0 + loss1}

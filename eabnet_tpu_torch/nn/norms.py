@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eabnet_tpu_torch.nn.stepping import Frame, current
+from eabnet_tpu_torch.parallel.mesh import all_reduce_sum, process_count
 
 
 def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -119,7 +120,11 @@ class BatchNorm(_Affine):
     ``ra = 0.9 ra + 0.1 batch``; in evaluation it reads them. They are the
     buffers ``mean`` and ``var``, flax's ``batch_stats`` collection.
     (``torch.nn.BatchNorm`` updates with the unbiased variance, and its
-    momentum is the other share.)"""
+    momentum is the other share.) Inside a process group of more than one
+    rank the batch is the global one, as under the JAX package's mesh: the
+    ranks' sums of x and x^2 and their counts are all-reduced
+    (differentiably), so every rank normalises with the same statistics
+    and moves the same running ones."""
 
     momentum = 0.9
 
@@ -132,9 +137,12 @@ class BatchNorm(_Affine):
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
             xf = x.float()
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(torch.square(xf).mean(dim=axes)
-                              - torch.square(mean), min=0.0)
+            if process_count() > 1:
+                mean, var = _global_moments(xf, axes)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp(torch.square(xf).mean(dim=axes)
+                                  - torch.square(mean), min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     (1 - self.momentum) * mean.detach())
@@ -152,6 +160,19 @@ class BatchNorm(_Affine):
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((x - _bcast(mean, x.dim())) * _bcast(mul, x.dim()) +
                 _bcast(self.bias, x.dim())).to(x.dtype)
+
+
+def _global_moments(xf: torch.Tensor, axes):
+    """The mean and biased variance (E[x^2] - E[x]^2, clamped at 0) per
+    channel over the batch of every rank."""
+    c = xf.shape[1]
+    sums = all_reduce_sum(torch.cat([
+        xf.sum(dim=axes), torch.square(xf).sum(dim=axes),
+        xf.new_full((1,), float(xf.numel() // c))]))
+    count = sums[2 * c].detach()
+    mean = sums[:c] / count
+    return mean, torch.clamp(sums[c:2 * c] / count - torch.square(mean),
+                             min=0.0)
 
 
 NORMS = {

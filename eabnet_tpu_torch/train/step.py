@@ -19,6 +19,22 @@ every model output is cast to float32 before the mask and the loss, and
 clipping and Adam run in float32 on float32 state. The batch norms' running statistics stay
 float32 buffers, as flax keeps ``batch_stats``. The eval step runs in
 float32, as the JAX package's does.
+
+Inside a ``torch.distributed`` process group (of any size) the train step
+is one rank's part of a data-parallel step over the global batch, the
+rows of every rank together, with the JAX package's semantics under a
+mesh. Each rank all-reduces the loss mask's frame count first and
+divides its loss by the global count, so its loss is its share of the
+global batch's (a mean of the ranks' means would weigh the frames of a
+rank with fewer of them more). One all-reduce (sum) of a flat float32
+buffer then gathers the gradients and the losses before clipping and
+Adam: clipping sees the global norm, every rank applies the same update,
+and the returned losses are the global batch's. Batch norms take the
+global batch's statistics (``nn/norms.py``). The wav step first pads its
+rows to the longest of the global batch, as one process's collation
+would. The model is not wrapped in ``DistributedDataParallel``, whose
+gradient is the mean of the ranks' means and whose forward broadcasts
+buffers.
 """
 
 from __future__ import annotations
@@ -27,6 +43,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from eabnet_tpu_torch.config import ExperimentConfig
@@ -34,6 +52,7 @@ from eabnet_tpu_torch.dsp import prepare_data
 from eabnet_tpu_torch.losses import eabnet_with_postnet_loss, frame_mask
 from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.models.eabnet import from_reference_layout
+from eabnet_tpu_torch.parallel.mesh import all_reduced, in_group
 from eabnet_tpu_torch.utils.quantize import flat_views
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults (eps_root = 0)
@@ -160,24 +179,60 @@ def _cast_parameters(model: nn.Module, dtype: torch.dtype) -> dict:
         flat, [tuple(p.shape) for p in params.values()])))
 
 
+def global_frames(local: torch.Tensor) -> torch.Tensor:
+    """The valid frames of the global batch: the sum over the group's
+    ranks of each rank's count ``local``."""
+    return all_reduced(local.float())
+
+
+def _pad_to_global(noisy_wav, target_wav, n_samples):
+    """A rank's rows zero-padded to the longest rows of the global batch
+    (its length all-reduced by max), with their true lengths: the rows a
+    single process would have cut from the collated global batch."""
+    n = noisy_wav.shape[-1]
+    if n_samples is None:
+        n_samples = torch.full((noisy_wav.shape[0],), n, dtype=torch.int32)
+    pad = int(all_reduced(torch.tensor([n]), dist.ReduceOp.MAX)) - n
+    if pad:
+        noisy_wav = F.pad(noisy_wav, (0, pad))
+        target_wav = F.pad(target_wav, (0, pad))
+    return noisy_wav, target_wav, n_samples
+
+
+def _all_reduce_step(grads: Dict[str, torch.Tensor],
+                     losses: Dict[str, torch.Tensor]):
+    """The gradients and the losses summed over the group's ranks, in one
+    all-reduce of one flat float32 buffer."""
+    names, keys = list(grads), list(losses)
+    flat = torch.cat([grads[n].reshape(-1) for n in names]
+                     + [torch.stack([losses[k].detach() for k in keys])])
+    views = flat_views(all_reduced(flat),
+                       [tuple(grads[n].shape) for n in names]
+                       + [(len(keys),)])
+    return dict(zip(names, views)), dict(zip(keys, views[-1].unbind()))
+
+
 def _forward_losses(model, cfg, noisy_wav, target_wav, n_samples,
-                    compute=torch.float32):
+                    compute=torch.float32, reduce_frames=None):
+    """-> (losses, model output); ``reduce_frames`` maps the batch's count
+    of valid frames to the count the losses divide by."""
     noisy_wav, target_wav = _dequant(noisy_wav), _dequant(target_wav)
     if n_samples is None:
         n_samples = torch.full((noisy_wav.shape[0],), noisy_wav.shape[-1],
                                dtype=torch.int32, device=noisy_wav.device)
     noisy_stft, target_stft = prepare_data(noisy_wav, target_wav, cfg.stft)
+    t = noisy_stft.shape[1]
+    mask = frame_mask(_valid_frames(n_samples.to(noisy_wav.device), t, cfg,
+                                    noisy_wav.shape[-1]), t)
+    frames = None if reduce_frames is None else reduce_frames(mask.sum())
     if compute == torch.float32:
         out = model(noisy_stft)
     else:  # mixed precision: the casts are inside what autograd records
         out = _float32(torch.func.functional_call(
             model, _cast_parameters(model, compute),
             (noisy_stft.to(compute),)))
-    t = noisy_stft.shape[1]
-    mask = frame_mask(_valid_frames(n_samples.to(noisy_wav.device), t, cfg,
-                                    noisy_wav.shape[-1]), t)
     losses = eabnet_with_postnet_loss(
-        out, from_reference_layout(target_stft), mask)
+        out, from_reference_layout(target_stft), mask, frames)
     return losses, out
 
 
@@ -197,28 +252,33 @@ def make_train_step(cfg: ExperimentConfig, batch_kind: str = "wav",
     ``train_step(state, batch, corpus_speech, corpus_noise)``, a collated
     scene dict and the resident int16 corpus (``data/scene_mix.py``, with
     ``scene_dims``). Both mix the batch in float32 without gradients and
-    then take the wav step on it, as the JAX package's fused steps do."""
+    then take the wav step on it, as the JAX package's fused steps do.
+    Made inside a process group, the step is that rank's part of a
+    data-parallel step (module doc)."""
     if batch_kind == "scene" and scene_dims is None:
         raise ValueError("batch_kind='scene' needs scene_dims")
     if batch_kind not in ("wav", "parts", "scene"):
         raise ValueError(f"unknown batch_kind {batch_kind!r}")
     frozen = "eabnet." if cfg.model.freeze_eabnet else None
     compute = _COMPUTE[cfg.train.compute_dtype]
+    parallel = in_group()
 
-    def train_step(state: TrainState, noisy_wav, target_wav,
-                   n_samples=None):
+    def rows_step(state: TrainState, noisy_wav, target_wav, n_samples):
         model = state.model
         model.train()
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         with torch.enable_grad():
-            losses, _ = _forward_losses(model, cfg, noisy_wav, target_wav,
-                                        n_samples, compute)
+            losses, _ = _forward_losses(
+                model, cfg, noisy_wav, target_wav, n_samples, compute,
+                global_frames if parallel else None)
             losses["final"].backward()
         grads = {n: (torch.zeros_like(p) if p.grad is None
                      or (frozen and n.startswith(frozen)) else p.grad)
                  for n, p in params.items()}
+        if parallel:
+            grads, losses = _all_reduce_step(grads, losses)
         grads = clip_by_global_norm(grads, cfg.train.grad_clip)
         updates = adam_update(grads, state.opt_state, cfg.train.lr)
         with torch.no_grad():
@@ -230,13 +290,20 @@ def make_train_step(cfg: ExperimentConfig, batch_kind: str = "wav",
         state.step += 1
         return state, {k: v.detach() for k, v in losses.items()}
 
+    def train_step(state: TrainState, noisy_wav, target_wav,
+                   n_samples=None):
+        if parallel:
+            noisy_wav, target_wav, n_samples = _pad_to_global(
+                noisy_wav, target_wav, n_samples)
+        return rows_step(state, noisy_wav, target_wav, n_samples)
+
     if batch_kind == "parts":
         from eabnet_tpu_torch.data.device_mix import mix_parts
 
         def parts_step(state: TrainState, batch):
             with torch.no_grad():
                 noisy, target = mix_parts(batch, batch["sources"].shape[-1])
-            return train_step(state, noisy, target, batch["lengths"])
+            return rows_step(state, noisy, target, batch["lengths"])
 
         return parts_step
     if batch_kind == "scene":
@@ -247,7 +314,7 @@ def make_train_step(cfg: ExperimentConfig, batch_kind: str = "wav",
             with torch.no_grad():
                 noisy, target = mix_scene(batch, corpus_speech,
                                           corpus_noise, scene_dims)
-            return train_step(state, noisy, target, batch["lengths"])
+            return rows_step(state, noisy, target, batch["lengths"])
 
         return scene_step
     return train_step

@@ -45,7 +45,9 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.data.device_mix",
             "eabnet_tpu_torch.data.scene_mix", "eabnet_tpu_torch.cli.split",
             "eabnet_tpu_torch.cli.datagen",
-            "eabnet_tpu_torch.cli.resample"} <= set(mods)
+            "eabnet_tpu_torch.cli.resample", "eabnet_tpu_torch.parallel",
+            "eabnet_tpu_torch.parallel.mesh",
+            "eabnet_tpu_torch.parallel.launch"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -136,3 +138,36 @@ def test_no_pytorch_cpp_extension():
     for path in SOURCES:
         with open(path) as f:
             assert "cpp_extension" not in f.read(), path
+
+
+RANK_CODE = """
+import sys
+
+from eabnet_tpu_torch.parallel.launch import spawn
+
+PROBE = ("(__import__('eabnet_tpu_torch.train.trainer'), "
+         "__import__('eabnet_tpu_torch.cli.train'), "
+         "__import__('eabnet_tpu_torch.inference'), "
+         "sorted(__import__('sys').modules))[-1]")
+
+if __name__ == "__main__":
+    mods = spawn(eval, 2, (PROBE,), backend="gloo", timeout_s=240)
+    bad = sorted({m for ms in mods for m in ms
+                  if m.split(".")[0] in FORBIDDEN})
+    print(bad)
+    sys.exit(0 if not bad and all("eabnet_tpu_torch.train.trainer" in ms
+                                  for ms in mods) else 1)
+"""
+
+
+def test_a_spawned_rank_loads_no_jax(tmp_path):
+    """Two ranks started by ``parallel.launch.spawn``, after importing the
+    trainer, the training CLI and the Enhancer, hold no JAX and no JAX
+    package module."""
+    script = tmp_path / "ranks.py"
+    script.write_text(f"FORBIDDEN = {FORBIDDEN!r}\n" + RANK_CODE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -74,12 +74,17 @@ def test_pad_modes_differ_only_at_the_end():
 
 
 def test_options_outside_the_slice_are_refused():
-    """Meshes and frequency sharding are refused; bfloat16 and int8w, once
-    refused, now serve on the CPU (finite, the output's shape, close to
-    float32 by tests/test_quantize.py's criteria); an unknown compute
-    dtype is a ValueError, as in the JAX package."""
+    """Frequency sharding, and a mesh with an axis beyond 'data' (what it
+    would shard), are refused (a 'data' mesh serves:
+    tests/test_torch_parallel.py); bfloat16 and int8w, once refused, now
+    serve on the CPU (finite, the output's shape, close to float32 by
+    tests/test_quantize.py's criteria); an unknown compute dtype is a
+    ValueError, as in the JAX package."""
+    from eabnet_tpu_torch.parallel import make_mesh
+
     cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
-    for kw in ({"mesh": object()}, {"shard_freq": True}):
+    freq_mesh = make_mesh(("data", "freq"), ["cpu", "cpu"], sizes=(1, -1))
+    for kw in ({"mesh": freq_mesh}, {"shard_freq": True}):
         with pytest.raises(NotImplementedError):
             Enhancer(cfg, {}, device="cpu", **kw)
     with pytest.raises(ValueError):
