@@ -171,6 +171,27 @@ Phases, each announced with its elapsed seconds:
    float32 params and moments. Then 2 bf16 steps of eabnet_9mic_cln from
    its 50000.params: 1 / 0 / 1 / 0 launches per step, all bf16, finite
    losses, step time.
+9a. heads: the cnn and miso beamforming heads and L3DAS23 training. (a)
+   release/composed_9mic with its LSTM head replaced by a seeded Dense
+   bf_map (head_experiment: default_rng(16), normal / sqrt(embed_dim),
+   zero bias), as bf_type="cnn" and as topo_type="miso", through the
+   Enhancer with torch's default TF32 flags: item 00000 at both stages
+   against the JAX golden tests/golden/torch_port_heads_00000.npz (>= 40
+   dB), 0 LSTM-BF and 21 TCM-chain launches per float32 forward; the cnn
+   head in bf16 and int8w by the lowp phase's rules (R - 6 dB against the
+   JAX output of the same mode; bf16 also R - 3 against JAX float32;
+   int8w also within the int8w criteria of the port's float32). (b)
+   release/eabnet_9mic_cln with each head through StreamingComposed over
+   item 00000's first 64 STFT frames: within 2e-4 of the offline model
+   on those frames, no kernel launched, no head state, the state's bytes
+   after 8 frames those after 64. (c) train() on the card on
+   release/val_set written as L3DAS23 pickles (noisy mics 0-3 as (4, N),
+   clean as (1, N)), composed_9mic's release config with M = 4, batch 7,
+   float32, 3 steps from 40000.params restricted to mics 0-3
+   (restrict_mics): 1 + 21 + 1 + 21 launches per step (L = 1,127, B =
+   7), the step-1 losses within 1e-5 relative of the JAX golden
+   tests/golden/torch_port_train_l3das.npz, steps 2-3 printed beside
+   JAX's, the step wall, loader wait and items/s.
 10. online: online synthesis feeding the flagship recipe
    (examples/train_online_scene.sh: release-sized cLN models, bf16, batch
    16, 6-s clips, device_mix="scene", int16 transport, 3 loader workers).
@@ -1353,23 +1374,25 @@ def stream_phase(enh, smi: str) -> dict:
                 state_bytes=sizes[-1], launches=launches, entries=entries)
 
 
-def serve_item(enh, golden_path: str, want: dict, label: str = "",
-               check=None, lowp: bool = False):
-    """Item 00000 alone through ``enh`` at both stages: every kernel's
+def serve_item(enh, golden_path, want: dict, label: str = "",
+               check=None, lowp: bool = False,
+               stages=("esti", "esti0")):
+    """Item 00000 alone through ``enh`` at ``stages``: every kernel's
     launches in one forward (must equal ``want``, keyed as LAUNCH_KEYS,
     all through the float32 entries or with ``lowp`` the bf16 ones),
-    finite output, and SNR against the JAX golden (or ``check(stage,
-    out)``); returns the launches of the ``esti`` forward, the same by C
-    entry, and the outputs by stage."""
+    finite output, and SNR against the JAX golden (a path, or its arrays
+    by stage; or ``check(stage, out)``); returns the launches of the
+    ``esti`` forward, the same by C entry, and the outputs by stage."""
     import numpy as np
     import torch
 
     from eabnet_tpu_torch.utils.audio_io import read_wav
 
     _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
-    golden = np.load(golden_path)
+    golden = (np.load(golden_path) if isinstance(golden_path, str)
+              else golden_path)
     outs = {}
-    for stage in ("esti", "esti0"):
+    for stage in stages:
         enh.output = stage
         enh(noisy0)  # warm-up (cuDNN algorithm choice, allocator)
         torch.cuda.synchronize()
@@ -3524,6 +3547,320 @@ def ddp_phase(smi: str, online_paths: dict, online_step1: float) -> dict:
                     for k, v in serving.items()}})
 
 
+# ------------------------------------------------------------------ heads
+HEAD_SEED = 16
+HEADS = {"cnn": {"bf_type": "cnn"}, "miso": {"topo_type": "miso"}}
+HEADS_GOLDEN = "tests/golden/torch_port_heads_00000.npz"
+HEADS_STREAM_FRAMES = 64
+L3DAS_GOLDEN = "tests/golden/torch_port_train_l3das.npz"
+L3DAS_DIR = "build/chip_smoke_l3das"
+L3DAS_MICS = 4
+L3DAS_STEPS = 3
+
+
+def head_experiment(exp: str, head: str):
+    """(config dict, params tree) of the released model ``exp`` with its
+    LSTM head replaced by ``head``'s Dense ``bf_map``: the cnn head maps
+    embed_dim to 2M channels, the miso one to 2; kernel (in, out) drawn
+    normal from ``default_rng(HEAD_SEED)`` and scaled by 1/sqrt(embed_dim),
+    bias zero. The rest of the tree is the released one."""
+    import numpy as np
+
+    from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
+
+    with open(os.path.join(exp, "config.json")) as f:
+        d = json.load(f)
+    d["model"]["eabnet"].update(HEADS[head])
+    dim, m = d["model"]["eabnet"]["embed_dim"], d["model"]["eabnet"]["M"]
+    out = 2 if head == "miso" else 2 * m
+    rng = np.random.default_rng(HEAD_SEED)
+    tree = load_params(latest_checkpoint(exp))
+    tree["eabnet"]["bf_map"] = {
+        "kernel": (rng.standard_normal((dim, out)) / np.sqrt(dim)
+                   ).astype(np.float32),
+        "bias": np.zeros(out, np.float32)}
+    return d, tree
+
+
+def restrict_mics(tree: dict, mics: int) -> dict:
+    """A composed-model params tree cut to its first ``mics`` microphones.
+    M enters the parameters in two places, both folding (mic, ri)
+    mic-major as channel 2m + ri (the models reshape (..., M, 2) to 2M):
+    the first encoder conv's input channels (flax HWIO kernel, axis 2;
+    ``weights.py`` maps it to OIHW's axis 1) and the LSTM head's fc2
+    outputs (flax Dense (in, out) kernel, axis 1, and its bias). So mics
+    0..mics-1 are the first 2 * mics entries along those axes."""
+    conv = tree["eabnet"]["en"]["unet_0"]["in_conv"]["conv"]
+    conv["kernel"] = conv["kernel"][:, :, :2 * mics].copy()
+    fc2 = tree["eabnet"]["bf_map"]["fc2"]
+    fc2["kernel"] = fc2["kernel"][:, :2 * mics].copy()
+    fc2["bias"] = fc2["bias"][:2 * mics].copy()
+    return tree
+
+
+def write_l3das_pickles(root: str, mics: int = L3DAS_MICS) -> dict:
+    """release/val_set as an L3DAS23 pickle pair under ``root``:
+    predictors the noisy wavs' mics 0..mics-1 as (mics, N), targets the
+    clean wavs as (1, N), float32, in file order. Returns the data
+    config's path keys; training and validation name the same pair."""
+    import pickle
+
+    import numpy as np
+
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    names = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(VAL, "noisy", "*.wav")))
+    preds = [read_wav(os.path.join(VAL, "noisy", n))[1][:mics]
+             for n in names]
+    targets = [read_wav(os.path.join(VAL, "clean", n))[1][None]
+               for n in names]
+    os.makedirs(root, exist_ok=True)
+    paths = l3das_paths(root)
+    for kind, obj in (("predictors", preds), ("target", targets)):
+        with open(paths[f"training_{kind}_path"], "wb") as f:
+            pickle.dump([np.asarray(a, np.float32) for a in obj], f)
+    return paths
+
+
+def l3das_paths(root: str) -> dict:
+    """The data config's L3DAS23 path keys for the pickle pair under
+    ``root`` (``write_l3das_pickles``)."""
+    return {f"{split}_{kind}_path": os.path.join(root, f"val_{kind}.pkl")
+            for split in ("training", "validation")
+            for kind in ("predictors", "target")}
+
+
+def l3das_config(paths: dict, run: str = "") -> dict:
+    """composed_9mic's release config for L3DAS23 training: M = 4, the
+    pickles at ``paths``, batch 7 (the 6-s items), float32, jointly at lr
+    5e-4 with clip 1.0 (the train golden's settings), no validation; the
+    checkpoints under ``run``."""
+    with open(os.path.join(EXP, "config.json")) as f:
+        d = json.load(f)
+    d["model"]["eabnet"]["M"] = L3DAS_MICS
+    d["model"]["freeze_eabnet"] = False
+    d["data"].update(dataset="l3das23", num_workers=0, **paths)
+    d["train"].update(compute_dtype="float32", lr=5e-4, grad_clip=1.0,
+                      batch_size=7, log_every=1, total_epoch=1000,
+                      checkpoint_dir=os.path.join(run, "ckpt") if run else "",
+                      exp_root=run)
+    return d
+
+
+def l3das_params() -> dict:
+    """The release 40000.params restricted to mics 0..3."""
+    from eabnet_tpu_torch.checkpoint import load_params
+
+    return restrict_mics(load_params(os.path.join(EXP, "40000.params")),
+                         L3DAS_MICS)
+
+
+def heads_serving(smi: str) -> dict:
+    """(a) of the heads phase: composed_9mic with the seeded cnn and miso
+    heads through the Enhancer with torch's default TF32 flags, item
+    00000 at both stages against the JAX golden, 0 LSTM-BF and 21
+    TCM-chain launches per float32 forward; the cnn head in bf16 and
+    int8w by the lowp phase's rules."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.inference import Enhancer
+
+    golden = np.load(HEADS_GOLDEN)
+    want = dict(zip(LAUNCH_KEYS, (0, 21, 0, 0)))
+    r = snr_db(golden["esti_cnn"], golden["esti_cnn_bfloat16"])
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    snrs, f32 = {}, {}
+
+    def lowp_check(mode, label):
+        def check(stage, y):
+            to_ref = snr_db(golden[f"esti_cnn_{mode}"], y)
+            to_f32 = snr_db(golden["esti_cnn"], y)
+            say(f"{label}{stage}: vs JAX {mode} {to_ref:.2f} dB (R {r:.2f}, "
+                f"needs {r - LOWP_MODEL_DB:.2f}), vs JAX float32 "
+                f"{to_f32:.2f} dB")
+            require(to_ref >= r - LOWP_MODEL_DB, f"{label}{stage}: >= R - "
+                    f"{LOWP_MODEL_DB:g} dB vs JAX {mode}")
+            if mode == "bfloat16":
+                require(to_f32 >= r - LOWP_F32_DB, f"{label}{stage}: >= R "
+                        f"- {LOWP_F32_DB:g} dB vs JAX float32")
+            else:
+                ref = f32["cnn"][stage]
+                err = float(np.linalg.norm(y - ref) / np.linalg.norm(ref))
+                corr = float(np.corrcoef(y, ref)[0, 1])
+                say(f"{label}{stage}: vs the port's float32: relative "
+                    f"error {err:.4f}, correlation {corr:.5f}")
+                require(err < INT8W_MAX_ERR and corr > INT8W_MIN_CORR,
+                        f"{label}{stage}: relative error < {INT8W_MAX_ERR}, "
+                        f"correlation > {INT8W_MIN_CORR} vs float32")
+            snrs[f"cnn {mode}"] = dict(snr=to_ref, r=r, snr_f32=to_f32)
+        return check
+
+    try:
+        for head in HEADS:
+            d, tree = head_experiment(EXP, head)
+            cfg = ExperimentConfig.from_dict(d)
+            ref = {s: golden[f"{s}_{head}"] for s in ("esti", "esti0")}
+            _, entries, f32[head] = serve_item(
+                Enhancer(cfg, tree, device="cuda"), ref, want,
+                f"heads {head} ")
+            snrs[head] = {s: snr_db(ref[s], f32[head][s]) for s in ref}
+            if head != "cnn":
+                continue
+            heads_entries = entries
+            for mode in LOWP_MODES:
+                label = f"heads cnn {mode} "
+                serve_item(Enhancer(cfg, tree, compute_dtype=mode,
+                                    device="cuda"),
+                           {"esti": ref["esti"]}, want, label,
+                           lowp_check(mode, label), lowp=True,
+                           stages=("esti",))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.cuda.empty_cache()
+    say(f"heads: item 00000 SNR vs the JAX golden (dB) {snrs}, on {smi}")
+    return dict(entries=heads_entries, snr=snrs)
+
+
+def heads_stream() -> dict:
+    """(b) of the heads phase: eabnet_9mic_cln with each seeded head,
+    StreamingComposed over item 00000's first HEADS_STREAM_FRAMES frames
+    against the offline model on the same frames (within STREAM_TOL), no
+    kernel launched, no head state, the state's bytes constant."""
+    import torch
+
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.dsp import prepare_data
+    from eabnet_tpu_torch.models.composed import build_model
+    from eabnet_tpu_torch.streaming import StreamingComposed, state_bytes
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+    from eabnet_tpu_torch.utils.precision import float32_products
+    from eabnet_tpu_torch.weights import load_jax_params
+
+    _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
+    wav = torch.from_numpy(noisy0[None]).cuda()
+    err, all_entries, step_ms = {}, {}, {}
+    for head in HEADS:
+        d, tree = head_experiment(EXP_CLN, head)
+        cfg = ExperimentConfig.from_dict(d)
+        model = load_jax_params(build_model(cfg.model), tree).cuda().eval()
+        s = StreamingComposed(model)
+        with float32_products("cuda"), torch.inference_mode():
+            frames = prepare_data(wav, None, cfg.stft)[0][
+                :, :HEADS_STREAM_FRAMES]
+            offline = model(frames)
+            zero_launches()
+            state = s.init_state(1)
+            outs, sizes = [], []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t in range(frames.shape[1]):
+                state, out = s.step(state, frames[:, t])
+                outs.append(out)
+                if t == 7:
+                    sizes.append(state_bytes(state))
+            torch.cuda.synchronize()
+            step_ms[head] = (time.perf_counter() - t1) * 1e3 / len(outs)
+            sizes.append(state_bytes(state))
+            launches, entries = read_launches(), read_entries()
+        all_entries.update(entries)
+        require(not any(launches.values()) and not entries,
+                f"heads stream {head}: no kernel of the port on the frame "
+                f"step ({launches})")
+        require(not any("bf_map" in k for k in state),
+                f"heads stream {head}: the state holds no head leaves")
+        for k in ("esti0", "esti"):
+            got = torch.stack([o[k] for o in outs], dim=1)
+            err[f"{head} {k}"] = (got - offline[k]).abs().max().item()
+        say(f"heads stream {head}: {len(outs)} frames, max|stream - "
+            f"offline| esti0 {err[f'{head} esti0']:.3e}, esti "
+            f"{err[f'{head} esti']:.3e} (tolerance {STREAM_TOL:g}); state "
+            f"{sizes[0]} bytes after 8 frames, {sizes[-1]} after "
+            f"{len(outs)}; {step_ms[head]:.2f} ms per frame")
+        require(max(err[f"{head} esti0"], err[f"{head} esti"]) <= STREAM_TOL
+                and sizes[0] == sizes[-1], f"heads stream {head}: within "
+                f"{STREAM_TOL:g} of offline, state bytes constant")
+        del model, s
+    return dict(entries=all_entries, err=err, step_ms=step_ms)
+
+
+def heads_l3das(smi: str) -> dict:
+    """(c) of the heads phase: train() on the card from 40000.params cut
+    to mics 0-3, on release/val_set written as L3DAS23 pickles (M = 4,
+    batch 7, float32): launches per step, the step-1 loss against the JAX
+    golden, steps 2-3 beside JAX's, step wall, loader wait, items/s."""
+    import shutil
+
+    import numpy as np
+
+    from eabnet_tpu_torch.checkpoint import msgpack_serialize
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.train.trainer import train
+
+    shutil.rmtree(L3DAS_DIR, ignore_errors=True)
+    paths = write_l3das_pickles(L3DAS_DIR)
+    golden = np.load(L3DAS_GOLDEN)
+    require(json.loads(str(golden["config"])) == l3das_config(paths),
+            "l3das: the run's config is the golden's")
+    run = os.path.join(L3DAS_DIR, "run")
+    os.makedirs(os.path.join(run, "ckpt"))
+    with open(os.path.join(run, "ckpt", "40000.params"), "wb") as f:
+        f.write(msgpack_serialize({"params": l3das_params()}))
+    zero_launches()
+    hist = train(ExperimentConfig.from_dict(l3das_config(paths, run)),
+                 max_steps=40000 + L3DAS_STEPS, device="cuda",
+                 tensorboard=False)
+    launches, entries = read_launches(), read_entries()
+    n = L3DAS_STEPS
+    want = dict(zip(LAUNCH_KEYS, (n, 21 * n, n, 21 * n)))
+    say(f"l3das: launches over {n} steps: {launches}, by C entry {entries}")
+    require(launches == want and entries == want_entries(want, False, True),
+            "l3das: 1 + 1 LSTM-BF (L = 7 x 161 = 1,127) and 21 + 21 "
+            "TCM-chain (B = 7) launches per step, all of the float32 "
+            "training kernels")
+    losses = np.array([[h[k] for k in LOSS_KEYS] for h in hist])
+    ref = golden["losses"]
+    rel = np.abs(losses - ref) / np.abs(ref)
+    for i in range(n):
+        say(f"l3das step {i + 1}: port {losses[i].tolist()}, JAX "
+            f"{ref[i].tolist()}, relative {rel[i].tolist()}")
+    require(bool(np.isfinite(losses).all()) and rel[0].max() <= TRAIN_LOSS_RTOL,
+            f"l3das: step-1 losses within {TRAIN_LOSS_RTOL:g} relative of "
+            "the JAX golden")
+    step_s = min(h["seconds"] for h in hist[1:])
+    wait = [h["wait"] for h in hist]
+    say(f"l3das: step wall {step_s * 1e3:.2f} ms (min of steps 2-{n}: "
+        f"{[round(h['seconds'] * 1e3, 2) for h in hist[1:]]}; step 1 "
+        f"{hist[0]['seconds'] * 1e3:.2f} ms), loader wait "
+        f"{[round(w * 1e3, 2) for w in wait]} ms, {7 / step_s:.2f} items/s "
+        f"at batch 7, M = {L3DAS_MICS}, on {smi}")
+    return dict(entries=entries, losses=losses.tolist(),
+                rel=rel.tolist(), step_s=step_s, wait=wait,
+                items_s=7 / step_s)
+
+
+def heads_phase(smi: str) -> dict:
+    """The heads phase (module doc, 9a): serving, streaming and L3DAS23
+    training with the cnn and miso heads."""
+    t_phase = time.perf_counter()
+    served = heads_serving(smi)
+    t_serve = time.perf_counter() - t_phase
+    streamed = heads_stream()
+    t_stream = time.perf_counter() - t_phase - t_serve
+    trained = heads_l3das(smi)
+    walls = dict(serve=t_serve, stream=t_stream,
+                 l3das=time.perf_counter() - t_phase - t_serve - t_stream)
+    say(f"heads: phase {sum(walls.values()):.1f} s ({walls})")
+    return dict(served=served, streamed=streamed, trained=trained,
+                walls=walls)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import numpy as np
@@ -3772,6 +4109,9 @@ def main() -> int:
             json.loads(str(np.load(TRAIN_GOLDEN)["config"])),
             trained["losses"])
 
+    with Phase("heads"):
+        heads = heads_phase(smi)
+
     with Phase("online"):
         t_phase = time.perf_counter()
         online = online_phase(smi)
@@ -3959,6 +4299,12 @@ def main() -> int:
     record["online"] = {f: online[f] for f in (
         "modes", "host_items_s", "native_err", "checks")}
     record["ddp"] = {k: v for k, v in ddp.items() if k != "entries"}
+    record["heads"] = dict(
+        walls=heads["walls"], snr=heads["served"]["snr"],
+        stream_err=heads["streamed"]["err"],
+        stream_ms=heads["streamed"]["step_ms"],
+        **{f"l3das_{k}": v for k, v in heads["trained"].items()
+           if k != "entries"})
     record["lowp"] = {p: {f: v[f] for f in (
         "gain", "gain_f32", "wall", "rtf", "peak_bytes", "param_bytes",
         "idle", "item")} for p, v in lowp.items()}
@@ -3974,7 +4320,10 @@ def main() -> int:
              "eval lowp": evaluated["lowp_entries"],
              "train_bf16": trained16["entries"],
              "train_bf16_cln": trained16["cln_entries"],
-             "online": online["entries"], **ddp["entries"]}
+             "online": online["entries"], **ddp["entries"],
+             "heads": heads["served"]["entries"],
+             "heads_stream": heads["streamed"]["entries"],
+             "l3das": heads["trained"]["entries"]}
     for k in record["kernels"]:
         entries, main_path = ROW_ENTRIES[k["name"]]
         k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)

@@ -2,9 +2,9 @@
 
 The port's own copy of the JAX package's dataclasses (same field names,
 defaults and JSON layout), so that every ``config.json`` written by either
-package loads here unchanged. Every key is accepted; what this slice of the
-port cannot run is refused when a model is built (``require_slice``), never
-silently rerouted.
+package loads here unchanged. Every key is accepted, and every model form
+of the JAX package builds; what the port cannot run (a frequency mesh
+axis) is refused where it is asked for, never silently rerouted.
 """
 
 from __future__ import annotations
@@ -149,9 +149,9 @@ class DataConfig:
     device: ``"loader"`` (or ``True``) mixes each batch there before the
     step, ``"parts"`` inside the train step, ``"scene"`` also rebuilds the
     RIRs there from scene parameters against a device-resident corpus
-    (``transfer_int16`` ships the parts as int16). ``l3das23`` raises
-    ``NotImplementedError``. Every key is accepted so every config
-    loads."""
+    (``transfer_int16`` ships the parts as int16). ``l3das23`` reads the
+    L3DAS23 challenge's pickled predictor/target pairs
+    (``data/l3das.py``). Every key is accepted so every config loads."""
 
     dataset: str = "mcse"
     train_set: str = "online"
@@ -249,33 +249,12 @@ class ExperimentConfig:
             return cls.from_json(f.read())
 
 
-def require_slice(cfg) -> None:
-    """Refuse a model configuration the port does not run yet.
-
-    The port runs the four norms (IN, cLN, cLN-ref, BN), the U²Net and
-    plain UNet encoder/decoders, causal and non-causal TCNs, and the mimo
-    topology with the LSTM beamforming head. The miso topology and the cnn
-    head wait for a later slice and raise here instead of running another
-    path.
-    """
-    if isinstance(cfg, EaBNetConfig):
-        if cfg.topo_type != "mimo":
-            raise NotImplementedError(
-                f"topo_type={cfg.topo_type!r}: the port runs 'mimo' only; "
-                "miso is a later slice")
-        if cfg.bf_type != "lstm":
-            raise NotImplementedError(
-                f"bf_type={cfg.bf_type!r}: the port runs the 'lstm' head "
-                "only; the cnn head is a later slice")
-
-
 def require_training(cfg: ExperimentConfig) -> None:
-    """Refuse a training configuration the port does not run (beside
-    ``require_slice``, which the models apply): a compute dtype other than
-    float32 and bfloat16, and mesh axes other than ("data",). The data
-    axis runs on one card or, inside a process group, on every rank
-    (``train/trainer.py``). An unknown ``device_mix`` mode raises
-    ``ValueError``, as in the JAX package."""
+    """Refuse a training configuration the port does not run: a compute
+    dtype other than float32 and bfloat16, and mesh axes other than
+    ("data",). The data axis runs on one card or, inside a process group,
+    on every rank (``train/trainer.py``). An unknown ``device_mix`` mode
+    raises ``ValueError``, as in the JAX package."""
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "

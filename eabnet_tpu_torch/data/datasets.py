@@ -12,7 +12,9 @@
   an online dataset, synthesis in a pool of spawned worker processes with
   prefetch, and the device-mix modes (``loader``, ``parts``, ``scene``).
 
-``l3das23`` is a later slice of the port; ``make_dataset`` refuses it.
+``make_dataset`` also reads ``l3das23``, the L3DAS23 challenge's pickled
+predictor/target pairs (``data/l3das.py``); its (1, N) targets collate
+into clean (B, N).
 Nothing here imports torch: the loader's workers import this module, and
 the device halves of the mix modes import torch where they run.
 """
@@ -459,6 +461,13 @@ def make_dataset(cfg: DataConfig, mics: int = 9, seed: int = 0):
         val = OfflineMcseDataset(cfg.val_set) if cfg.val_set else None
         return train, val
     if cfg.dataset == "l3das23":
-        raise NotImplementedError(
-            "dataset='l3das23' is a later slice of the port")
+        from eabnet_tpu_torch.data.l3das import L3dasDataset
+
+        train = L3dasDataset(
+            cfg.training_predictors_path, cfg.training_target_path,
+            cfg.path_images or None, cfg.path_csv_images or None)
+        val = L3dasDataset(
+            cfg.validation_predictors_path, cfg.validation_target_path,
+            cfg.path_images or None, cfg.path_csv_images or None)
+        return train, val
     raise ValueError(f"unknown dataset {cfg.dataset!r}")

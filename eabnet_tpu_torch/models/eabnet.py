@@ -1,9 +1,19 @@
 """EaBNet, the all-neural causal beamformer, in PyTorch.
 
 U²Net encoder over (time, freq) -> q accumulated squeezed-TCN groups on the
-(T, 256) bottleneck -> mirrored decoder -> LSTM beamforming head -> complex
-filter-and-sum over the microphones. The model's boundary keeps the JAX
-package's layout: input (B, T, F, M, 2) -> estimate (B, T, F, 2).
+(T, 256) bottleneck -> mirrored decoder -> beamforming head. The head is
+one of the JAX package's three (``eabnet_tpu/models/eabnet.py``):
+
+- mimo with ``bf_type="lstm"``: the LSTM head, then a complex
+  filter-and-sum over the microphones;
+- mimo with ``bf_type="cnn"``: a pointwise Dense ``bf_map`` to 2M
+  channels, the same filter-and-sum;
+- ``topo_type="miso"``: a Dense ``bf_map`` to 2 channels, a per-TF complex
+  product with mic 0 (the JAX package's form, not the reference's sum over
+  frequency; ARCHITECTURE.md).
+
+The model's boundary keeps the JAX package's layout: input (B, T, F, M, 2)
+-> estimate (B, T, F, 2).
 """
 
 from __future__ import annotations
@@ -12,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eabnet_tpu_torch.config import EaBNetConfig, require_slice
+from eabnet_tpu_torch.config import EaBNetConfig
 from eabnet_tpu_torch.kernels.lstm_bf import double_lstm
 from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
                                         U2NetDecoder, U2NetEncoder,
@@ -109,7 +119,6 @@ class EaBNet(nn.Module):
 
     def __init__(self, cfg: EaBNetConfig):
         super().__init__()
-        require_slice(cfg)
         self.cfg = cfg
         if cfg.is_u2:
             self.en = U2NetEncoder(2 * cfg.M, cfg.c, cfg.k1, cfg.k2,
@@ -126,7 +135,12 @@ class EaBNet(nn.Module):
                                    cfg.intra_connect, cfg.norm_type)
         else:
             self.de = UNetDecoder(cfg.embed_dim, cfg.c, cfg.k1, cfg.norm_type)
-        self.bf_map = LSTMBeamformer(cfg.embed_dim, cfg.M, cfg.hid_node)
+        if cfg.topo_type == "miso":
+            self.bf_map = Dense(cfg.embed_dim, 2)
+        elif cfg.bf_type == "cnn":
+            self.bf_map = Dense(cfg.embed_dim, 2 * cfg.M)
+        else:
+            self.bf_map = LSTMBeamformer(cfg.embed_dim, cfg.M, cfg.hid_node)
 
     def forward(self, inpt: torch.Tensor) -> torch.Tensor:
         """inpt (B, T, F, M, 2), or (B, T, F, 2) for one mic -> esti
@@ -147,4 +161,10 @@ class EaBNet(nn.Module):
             acc = acc + x
         x = acc.reshape(b, t, f_b, c_b).permute(0, 3, 1, 2)
         x = self.de(x, skips)  # (B, embed_dim, T, F)
-        return beamform_sum(self.bf_map(x), inpt)
+        if isinstance(self.bf_map, LSTMBeamformer):
+            return beamform_sum(self.bf_map(x), inpt)
+        w = self.bf_map(x.permute(0, 2, 3, 1))  # (B, T, F, 2M or 2)
+        if self.cfg.topo_type == "miso":
+            # per-TF weights on the reference mic 0: a sum over one mic
+            return beamform_sum(w[..., None, :], inpt[..., :1, :])
+        return beamform_sum(w.reshape(b, t, f, m, 2), inpt)

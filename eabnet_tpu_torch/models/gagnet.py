@@ -12,7 +12,7 @@ from typing import List
 import torch
 from torch import nn
 
-from eabnet_tpu_torch.config import GaGNetConfig, require_slice
+from eabnet_tpu_torch.config import GaGNetConfig
 from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
                                         U2NetEncoder, UNetEncoder)
 
@@ -117,7 +117,6 @@ class GaGNet(nn.Module):
 
     def __init__(self, cfg: GaGNetConfig):
         super().__init__()
-        require_slice(cfg)
         self.cfg = cfg
         if cfg.is_u2:
             self.en = U2NetEncoder(2 * cfg.cin, cfg.c, cfg.k1, cfg.k2,

@@ -10,8 +10,10 @@ The leaves that look along time carry the state:
   frames ((K - 1) * dilation for a TCM's dilated conv);
 - cumulative layer norms (count, sum, sum of squares) per item, in
   float32, from the same virtual-frame prior as offline;
-- each LSTM layer of the beamforming head (h, c) over its B * F lanes
-  (``nn/lstm.py``; the LSTM-BF kernel runs whole utterances only).
+- each LSTM layer of the LSTM beamforming head (h, c) over its B * F
+  lanes (``nn/lstm.py``; the LSTM-BF kernel runs whole utterances only).
+  The cnn and miso heads are pointwise Dense maps and carry nothing, so
+  their models' state holds no LSTM leaves, as the JAX stepper's.
 
 Batch norms read their running statistics: the stepper puts the model in
 evaluation mode. The state is a flat dict of tensors on the model's
@@ -27,14 +29,12 @@ from typing import Tuple
 
 import torch
 
-from eabnet_tpu_torch.config import require_slice
 from eabnet_tpu_torch.models.composed import EaBNetWithPostNet
 from eabnet_tpu_torch.models.eabnet import EaBNet
 from eabnet_tpu_torch.nn.stepping import Frame, State, stepping
 
 
 def _check_streamable(cfg) -> None:
-    require_slice(cfg)
     if cfg.norm_type == "IN":
         raise ValueError(
             "InstanceNorm cannot stream (non-causal statistics); train with "
@@ -46,16 +46,13 @@ def _check_streamable(cfg) -> None:
 
 class _Stepper:
     """init_state / step / run over an offline model in evaluation mode,
-    whose modules and weights it uses in place."""
+    whose modules and weights it uses in place. A subclass's ``_forward``
+    runs the model's offline forward on one frame (B, 1, F, M, 2)."""
 
     def __init__(self, model: torch.nn.Module, mics: int, freq_bins: int):
         self.model = model.eval()
         self.mics, self.freq_bins = mics, freq_bins
         self._names = {mod: name for name, mod in model.named_modules()}
-
-    def _forward(self, x: torch.Tensor):
-        """The model's offline forward on one frame (B, 1, F, M, 2)."""
-        raise NotImplementedError
 
     def _step(self, fr: Frame, frame: torch.Tensor):
         if frame.dim() == 3:  # one mic

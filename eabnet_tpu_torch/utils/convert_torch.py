@@ -6,9 +6,11 @@ Consumes a reference `state_dict` (as produced by the reference trainer's
 `module.` prefixes) and emits the flax-layout param tree (nested dicts of
 numpy arrays) that the JAX package's converter emits;
 ``weights.load_jax_params`` then loads it into the port's modules, as it
-loads a ``.params`` file. The port's own copy of the import direction of
-the JAX package's ``utils/convert_torch.py``; ``tests/test_torch_pth.py``
-holds the two trees equal, array for array.
+loads a ``.params`` file; ``export_torch_state_dict`` goes the other way,
+by probing these converters. The port's own copy of the JAX package's
+``utils/convert_torch.py``; ``tests/test_torch_pth.py`` and
+``tests/test_torch_heads.py`` hold the two packages' trees and state
+dicts equal, array for array.
 
 Layout transforms handled here (and only here):
 - Conv2d   (O,I,kh,kw)  -> HWIO kernel (kh,kw,I,O)
@@ -430,3 +432,106 @@ def load_torch_checkpoint(path: str, cfg: ComposedConfig) -> Dict:
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("model_state_dict", ckpt)
     return {"params": convert_composed(sd, cfg)}
+
+
+# ----------------------------------------------------- reverse (export)
+
+def _flatten_tree(d, path=()):
+    if isinstance(d, Mapping):
+        for k in sorted(d):
+            yield from _flatten_tree(d[k], path + (str(k),))
+    else:
+        yield path, np.asarray(d)
+
+
+def _np_keep_dtype(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def export_torch_state_dict(params, cfg, template_sd):
+    """flax params -> reference torch ``state_dict`` values (numpy).
+
+    The exact inverse of :func:`convert_composed` /
+    :func:`convert_eabnet` / :func:`convert_gagnet`, derived
+    mechanically rather than re-implemented: the forward converter is
+    probed with unique integer ids (exact in float32 below 2**24), which
+    yields, for every element of every flax leaf, its source position in
+    the torch tensors; the real parameter values are then scattered back
+    through that index map. This cannot drift from the forward path —
+    any transform added there (transposes, kernel flips, channel-fold /
+    bottleneck permutations) is inverted automatically, and a transform
+    that stops being a per-tensor bijection is detected and rejected.
+
+    ``template_sd`` supplies the reference model's exact key names,
+    shapes, and dtypes — e.g. ``make_eabnet_with_postnet(args).
+    state_dict()`` (reference: EaBNet.py:815). Returns
+    ``(state_dict, unmapped_keys)``: keys the forward converter never
+    reads (none for the shipped configs) keep their template values.
+    """
+    keys = list(template_sd.keys())
+    tmpl = {k: _np_keep_dtype(template_sd[k]) for k in keys}
+    offsets, off = {}, 0
+    for k in keys:
+        offsets[k] = off
+        off += int(tmpl[k].size)
+    total = off
+    if total >= 2 ** 24:
+        raise ValueError(
+            f"{total} probe ids exceed float32's exact-integer range"
+        )
+    probe = {
+        k: np.arange(offsets[k] + 1, offsets[k] + 1 + tmpl[k].size,
+                     dtype=np.float32).reshape(tmpl[k].shape)
+        for k in keys
+    }
+    if isinstance(cfg, ComposedConfig):
+        fwd = lambda sd: convert_composed(sd, cfg)  # noqa: E731
+    elif isinstance(cfg, EaBNetConfig):
+        fwd = lambda sd: convert_eabnet(sd, cfg)  # noqa: E731
+    elif isinstance(cfg, GaGNetConfig):
+        fwd = lambda sd: convert_gagnet(sd, cfg)  # noqa: E731
+    else:
+        raise TypeError(f"unsupported config type {type(cfg).__name__}")
+
+    idx_tree = dict(_flatten_tree(fwd(probe)))
+    par_tree = dict(_flatten_tree(params))
+    if set(idx_tree) != set(par_tree):
+        diff = sorted(
+            "/".join(p) for p in set(idx_tree) ^ set(par_tree)
+        )[:8]
+        raise ValueError(f"param tree mismatch vs converter output: {diff}")
+
+    flat = np.zeros(total, np.float64)
+    written = np.zeros(total, bool)
+    for path, ids in idx_tree.items():
+        ii = ids.astype(np.int64).ravel()
+        if not (np.all(ids.ravel() == ii) and ii.size
+                and ii.min() >= 1 and ii.max() <= total):
+            raise ValueError(
+                f"forward transform at {'/'.join(path)} is not a "
+                f"per-tensor bijection; cannot invert"
+            )
+        v = np.asarray(par_tree[path], np.float64).ravel()
+        dup = written[ii - 1]
+        if np.any(dup) and not np.array_equal(flat[ii - 1][dup], v[dup]):
+            raise ValueError(
+                f"conflicting duplicate mapping at {'/'.join(path)}"
+            )
+        flat[ii - 1] = v
+        written[ii - 1] = True
+
+    out, unmapped = {}, []
+    for k in keys:
+        n = int(tmpl[k].size)
+        w = written[offsets[k]:offsets[k] + n]
+        if not w.any():
+            out[k] = tmpl[k].copy()
+            unmapped.append(k)
+        elif not w.all():
+            raise ValueError(f"partially mapped torch tensor {k!r}")
+        else:
+            out[k] = (flat[offsets[k]:offsets[k] + n]
+                      .reshape(tmpl[k].shape).astype(tmpl[k].dtype))
+    return out, unmapped

@@ -711,3 +711,36 @@ def test_scores_on_card_match_release_csv(cuda):
         for m, tol in SCORE_TOL.items():
             assert abs(row[m] - float(want[m])) <= tol, (
                 row["filename"], m, row[m], want[m])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head", ["cnn", "miso"])
+def test_heads_on_card_match_golden(cuda, head):
+    """composed_9mic with the seeded cnn or miso head (chip_smoke's heads
+    phase) on the card: both stages at 40 dB against the JAX golden, no
+    LSTM-BF and 21 TCM-chain launches per forward."""
+    import sys
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.inference import Enhancer
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    golden = np.load(os.path.join(ROOT, C.HEADS_GOLDEN))
+    _, noisy = read_wav(os.path.join(ROOT, C.VAL, "noisy", "00000.wav"))
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        d, tree = C.head_experiment(C.EXP, head)
+    finally:
+        os.chdir(cwd)
+    enh = Enhancer(ExperimentConfig.from_dict(d), tree, device="cuda")
+    for stage in ("esti", "esti0"):
+        enh.output = stage
+        l0, t0 = double_lstm.launches, tcm_chain.launches
+        out = enh(noisy)
+        assert (double_lstm.launches - l0, tcm_chain.launches - t0) == (0, 21)
+        ref = golden[f"{stage}_{head}"]
+        assert 10 * np.log10(np.sum(ref ** 2)
+                             / np.sum((ref - out) ** 2)) >= 40, stage

@@ -1,6 +1,8 @@
 """The port stands alone: no module of eabnet_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax, msgpack or the JAX package, in
-the parent process or in a spawned worker of the data loader."""
+the parent process or in a spawned worker of the data loader. PIL (absent
+on the card's machine) is imported only inside
+``data/l3das.py::load_image``, never when a module is imported."""
 
 import ast
 import os
@@ -47,12 +49,14 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.cli.datagen",
             "eabnet_tpu_torch.cli.resample", "eabnet_tpu_torch.parallel",
             "eabnet_tpu_torch.parallel.mesh",
-            "eabnet_tpu_torch.parallel.launch"} <= set(mods)
+            "eabnet_tpu_torch.parallel.launch",
+            "eabnet_tpu_torch.data.l3das"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('PIL',)!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -131,6 +135,27 @@ def test_no_source_names_a_forbidden_module():
                 names = [node.args[0].value]
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+def test_only_load_image_imports_pil():
+    """No source imports PIL at module level or in another function; the
+    one import sits in ``data/l3das.py::load_image``."""
+    found = []
+    for path in SOURCES:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        owner = {}  # node -> its innermost function (walk is outer first)
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                owner.update((node, fn.name) for node in ast.walk(fn))
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == "PIL" for n in names):
+                found.append((os.path.relpath(path, ROOT), owner.get(node)))
+    assert found == [(os.path.join("eabnet_tpu_torch", "data", "l3das.py"),
+                      "load_image")]
 
 
 def test_no_pytorch_cpp_extension():

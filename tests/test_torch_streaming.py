@@ -120,9 +120,9 @@ def test_instance_norm_and_non_causal_tcn_are_refused():
         StreamingEaBNet(EaBNet(EaBNetConfig(**EAB)))
     with pytest.raises(ValueError, match="cannot stream"):
         StreamingComposed(composed("cLN", is_causal=False))
-    with pytest.raises(NotImplementedError):
-        StreamingEaBNet(EaBNet(EaBNetConfig(norm_type="cLN",
-                                            topo_type="miso", **EAB)))
+    # the miso topology and the cnn head stream (tests/test_torch_heads.py)
+    for head in (dict(topo_type="miso"), dict(bf_type="cnn")):
+        StreamingEaBNet(EaBNet(EaBNetConfig(norm_type="cLN", **head, **EAB)))
 
 
 def test_state_is_constant_in_size():

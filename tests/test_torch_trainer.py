@@ -234,10 +234,11 @@ def test_training_guard_refuses(tmp_path, change):
 
 @pytest.mark.parametrize("what", ["online", "l3das23"])
 def test_make_dataset_refuses_what_it_does_not_load(tmp_path, what):
-    """l3das23 is refused; online synthesis loads: an OnlineMcseDataset
+    """l3das23 loads its pickles (tests/test_torch_l3das.py), and without
+    them fails to open them; online synthesis loads: an OnlineMcseDataset
     over the lists, with a packaged settings file, seeded per item."""
     if what == "l3das23":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(FileNotFoundError):
             PD.make_dataset(DataConfig(dataset="l3das23"))
         return
     (tmp_path / "sp").write_text("a.wav\nb.wav\nc.wav\n")
