@@ -16,6 +16,7 @@ Phases, each announced with its elapsed seconds:
    bound: max(FLOPs / 67 TFLOP/s, bytes / 3.35 TB/s), the H100 SXM f32
    non-tensor peak and memory rate. The LSTM-BF forward at T = 701 for
    one item and batches of 7, 8 and 16 (L = 161, 1,127, 1,288, 2,576),
+   and one item's share on 2 and 4 freq ranks (L = 81, 41),
    each with its lanes per block, blocks and waves over the SMs and the
    microseconds per step of it and of nn.LSTM; a second launch must give
    the same bits, L = 1,127 must fill at least 120 of 132 SMs and L =
@@ -243,6 +244,19 @@ Phases, each announced with its elapsed seconds:
    Enhancer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on the 7 val items
    (padded to 8) for both released models in float32 and bf16: within
    2e-5 of one replica, one forward's launches per replica, the walls.
+12. freq: frequency-axis model parallelism. Two gloo ranks on cuda:0
+   (NCCL refuses two ranks on one device) form a 1 x 2 ('data', 'freq')
+   mesh and serve item 00000 through Enhancer(shard_freq=True):
+   composed_9mic float32 at both stages and eabnet_9mic_cln float32
+   esti, each >= 40 dB against the JAX golden and within 2e-5 of the
+   one-process output of the slice and cln phases; composed_9mic bf16 at
+   R - 6 dB against one process in bf16; every rank the same output bits,
+   one LSTM-BF forward at its B·F_r lanes (81, 80) and, for
+   composed_9mic, 21 TCM-chain forwards per forward. Then four ranks for
+   composed_9mic float32 esti (41 + 40 + 40 + 40 lanes). Per rank: the
+   collectives and bytes by kind (halo, norm, gather, row) and the host
+   wall of one sharded forward beside one process's; the ranks share one
+   card and stage every collective through the host.
 
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
@@ -3223,7 +3237,7 @@ def free_card(label: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    say(f"ddp: {label}: card memory free {free / 2 ** 30:.2f} of "
+    say(f"{label}: card memory free {free / 2 ** 30:.2f} of "
         f"{total / 2 ** 30:.2f} GiB, this process holds "
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
 
@@ -3432,11 +3446,11 @@ def ddp_phase(smi: str, online_paths: dict, online_step1: float) -> dict:
     say(f"ddp (a) one process: losses {a.tolist()}, step walls "
         f"{[round(h['seconds'] * 1e3, 2) for h in hist_a]} ms, launches "
         f"{a_entries}; one-ulp spread per step {spreads.max(axis=0).tolist()}")
-    free_card("before the NCCL rank")
+    free_card("ddp: before the NCCL rank")
     (b,) = launch.spawn(ddp_train_rank, 1, ("ddp_nccl", cfg_dict, last,
                                             "cuda"), backend="nccl",
                         timeout_s=DDP_RANK_TIMEOUT_S)
-    free_card("before the gloo ranks")
+    free_card("ddp: before the gloo ranks")
     c = launch.spawn(ddp_train_rank, DDP_WORLD, ("ddp_gloo", cfg_dict, last,
                                                  "cuda:0"), backend="gloo",
                      timeout_s=DDP_RANK_TIMEOUT_S)
@@ -3498,7 +3512,7 @@ def ddp_phase(smi: str, online_paths: dict, online_step1: float) -> dict:
     # the flagship's online bf16 config on two gloo ranks, 1 worker each
     d = flagship_config(online_paths, "ddp_online", num_workers=1)
     d["train"]["validate_once_before_train"] = False
-    free_card("before the online ranks")
+    free_card("ddp: before the online ranks")
     online = launch.spawn(ddp_online_rank, DDP_WORLD,
                           (d, DDP_ONLINE_STEPS), backend="gloo",
                           timeout_s=DDP_RANK_TIMEOUT_S)
@@ -3545,6 +3559,181 @@ def ddp_phase(smi: str, online_paths: dict, online_step1: float) -> dict:
                     for r, v in enumerate(online)},
                  **{f"ddp_serve {k}": v["entries"]
                     for k, v in serving.items()}})
+
+
+# ------------------------------------------------------------------- freq
+FREQ_ATOL = 2e-5  # tests/test_inference_mesh.py:103
+FREQ_RANK_TIMEOUT_S = 300
+# (experiment, compute dtype, stages) served on item 00000 by each world
+FREQ_CASES = {2: ((EXP, "float32", ("esti", "esti0")),
+                  (EXP_CLN, "float32", ("esti",)),
+                  (EXP, "bfloat16", ("esti",))),
+              4: ((EXP, "float32", ("esti",)),)}
+
+
+def freq_rank(world: int, cases) -> dict:
+    """One rank of a 1 x ``world`` ('data', 'freq') mesh on cuda:0
+    (spawned, gloo): item 00000 through Enhancer(shard_freq=True) for each
+    (experiment, dtype, stages): the output, the launches by C entry and
+    the LSTM-BF forward's lanes in one forward (the counts zeroed just
+    before it), its collectives and bytes by kind; and the host wall of
+    one sharded forward of the first stage (min of 2, the card
+    synchronised)."""
+    import torch
+
+    from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.kernels._build import load_library
+    from eabnet_tpu_torch.models import eabnet as E
+    from eabnet_tpu_torch.parallel import freq, make_mesh
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    load_library()
+    lanes, lstm = [], E.double_lstm
+
+    def recorded(xw1, *args):
+        lanes.append(int(xw1.shape[1]))
+        return lstm(xw1, *args)
+
+    E.double_lstm = recorded
+    mesh = make_mesh(("data", "freq"), ["cuda:0"] * world, sizes=(1, -1))
+    _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
+    out = {}
+    for exp, dtype, stages in cases:
+        enh = load_enhancer(exp, compute_dtype=dtype, device="cuda:0",
+                            mesh=mesh, shard_freq=True)
+        enh(noisy0)  # warm-up (cuDNN's choice, the allocator)
+        for stage in stages:
+            enh.output = stage
+            torch.cuda.synchronize()
+            zero_launches()
+            freq.zero_counts()
+            lanes.clear()
+            y = enh(noisy0)
+            torch.cuda.synchronize()
+            out[f"{os.path.basename(exp)} {dtype} {stage}"] = dict(
+                out=y, entries=read_entries(), lanes=list(lanes),
+                counts={k: dict(v) for k, v in freq.counts.items()})
+        enh.output, walls = stages[0], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enh(noisy0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{os.path.basename(exp)} {dtype} wall_ms"] = min(walls)
+        del enh
+    return out
+
+
+def freq_phase(smi: str, one: dict) -> dict:
+    """Frequency-axis model parallelism on the one card (PERF.md §4's freq
+    cell): 2 gloo ranks on cuda:0 (NCCL refuses two ranks on one device)
+    serve item 00000 through Enhancer(shard_freq=True): composed_9mic
+    float32 at both stages and eabnet_9mic_cln float32 esti, each >= 40 dB
+    against the JAX golden and within 2e-5 of the one-process output
+    (``one``: the slice and cln phases', by experiment and stage);
+    composed_9mic bf16 at R - 6 dB against one process in bf16, R its SNR
+    against float32; each rank launching one LSTM-BF forward at its B·F_r
+    lanes (81 and 80) and 21 TCM-chain forwards for composed_9mic, the
+    ranks' outputs the same bits. Then 4 ranks for composed_9mic float32
+    (41 + 40 + 40 + 40 lanes). The collectives and bytes by kind and the
+    walls are printed: ranks share one card and stage every collective
+    through the host, so a wall is a record, not a latency result."""
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.parallel import launch
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+
+    _, noisy0 = read_wav(os.path.join(VAL, "noisy", "00000.wav"))
+    # one process in bf16 (R) and the one-process wall, before the ranks
+    enh = load_enhancer(EXP, compute_dtype="bfloat16", device="cuda")
+    enh(noisy0)
+    one[EXP, "bfloat16", "esti"] = enh(noisy0)
+    del enh
+    enh = load_enhancer(EXP, device="cuda")
+    enh(noisy0)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enh(noisy0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    one_wall = min(walls)
+    del enh
+    goldens = {EXP: np.load(GOLDEN), EXP_CLN: np.load(GOLDEN_CLN)}
+    res, entries = {}, {}
+    for world, cases in FREQ_CASES.items():
+        free_card(f"freq: before the {world} ranks")
+        t0 = time.perf_counter()
+        ranks = launch.spawn(freq_rank, world, (world, cases),
+                             backend="gloo", timeout_s=FREQ_RANK_TIMEOUT_S)
+        say(f"freq 1x{world}: {world} gloo ranks on cuda:0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # B·F_r lanes at B = 1: the rank's share of 161 bins
+        want_lanes = [[161 // world + (f < 161 % world)]
+                      for f in range(world)]
+        for exp, dtype, stages in cases:
+            name = os.path.basename(exp)
+            per_forward = (1, 21, 0, 0) if exp == EXP else (1, 0, 0, 0)
+            want = want_entries(dict(zip(LAUNCH_KEYS, per_forward)),
+                                dtype == "bfloat16")
+            for stage in stages:
+                label = f"{name} {dtype} {stage}"
+                recs = [r[label] for r in ranks]
+                y = recs[0]["out"]
+                same = all(np.array_equal(r["out"], y) for r in recs[1:])
+                if dtype == "float32":
+                    snr = snr_db(goldens[exp][stage], y)
+                    err = float(np.abs(y - one[exp, dtype, stage]).max())
+                    say(f"freq 1x{world} {label}: SNR vs the JAX golden "
+                        f"{snr:.2f} dB, max |sharded - one process| "
+                        f"{err:.3e}")
+                    require(snr >= GOLDEN_MIN_SNR_DB and err <= FREQ_ATOL,
+                            f"freq 1x{world} {label}: >= "
+                            f"{GOLDEN_MIN_SNR_DB:g} dB vs golden, within "
+                            f"{FREQ_ATOL:g} of one process")
+                    check = dict(snr=snr, err=err)
+                else:
+                    ref32 = one[exp, "float32", stage]
+                    ref16 = one[exp, dtype, stage]
+                    r = snr_db(ref32, ref16)
+                    got = snr_db(ref16, y)
+                    say(f"freq 1x{world} {label}: SNR vs one process in "
+                        f"{dtype} {got:.2f} dB, R {r:.2f} dB (needs "
+                        f"{r - LOWP_MODEL_DB:.2f})")
+                    require(got >= r - LOWP_MODEL_DB,
+                            f"freq 1x{world} {label}: within R - "
+                            f"{LOWP_MODEL_DB:g} dB of one process")
+                    check = dict(snr=got, r=r)
+                require(same, f"freq 1x{world} {label}: every rank returns "
+                        "the same output")
+                for f, rec in enumerate(recs):
+                    c = rec["counts"]
+                    say(f"freq 1x{world} {label} rank {f}: launches "
+                        f"{rec['entries']}, LSTM-BF lanes {rec['lanes']}; "
+                        "collectives " + ", ".join(
+                            f"{k} {v['calls']} ({v['bytes'] / 1e6:.3f} MB)"
+                            for k, v in c.items()))
+                    require(rec["entries"] == want
+                            and rec["lanes"] == want_lanes[f],
+                            f"freq 1x{world} {label} rank {f}: "
+                            f"{want} per forward, the LSTM-BF at "
+                            f"{want_lanes[f][0]} lanes")
+                    entries[f"freq 1x{world} rank{f} {label}"] = \
+                        rec["entries"]
+                res[f"1x{world} {label}"] = dict(
+                    **check, lanes=[r["lanes"] for r in recs],
+                    counts=[r["counts"] for r in recs])
+            walls = [r[f"{name} {dtype} wall_ms"] for r in ranks]
+            say(f"freq 1x{world} {name} {dtype}: host wall of one sharded "
+                f"forward per rank {['%.2f' % w for w in walls]} ms (gloo "
+                f"ranks sharing one card), one process (float32) "
+                f"{one_wall:.2f} ms ({smi})")
+            res[f"1x{world} {name} {dtype} wall_ms"] = walls
+    return dict(cases=res, one_wall_ms=one_wall, entries=entries)
 
 
 # ------------------------------------------------------------------ heads
@@ -3918,6 +4107,9 @@ def main() -> int:
             "lstm_7": lstm_case(bf_map, 7 * 161, t, seed=2),
             "lstm_8": lstm_case(bf_map, 8 * 161, t, seed=7),
             "lstm_16": lstm_case(bf_map, 16 * 161, t, seed=8),
+            # one item's lanes on each of 2 and 4 freq ranks (freq phase)
+            "lstm_81": lstm_case(bf_map, 81, t, seed=25),
+            "lstm_41": lstm_case(bf_map, 41, t, seed=26),
             "twin_1": tcm_case(twin_group, 1, t, seed=3),
             "twin_7": tcm_case(twin_group, 7, t, seed=4),
             "single_1": tcm_case(single_group, 1, t, seed=5),
@@ -3933,7 +4125,8 @@ def main() -> int:
         require(not bad, f"every kernel within {KERNEL_ATOL:g} of its plain "
                 f"version (outside: {bad})")
         lstm_keys = ("lstm_1", "lstm_7", "lstm_8", "lstm_16")
-        require(all(res[k]["same"] for k in lstm_keys),
+        serve_keys = lstm_keys + ("lstm_81", "lstm_41")
+        require(all(res[k]["same"] for k in serve_keys),
                 "lstm_bf: a second launch gives the same bits at every shape")
         tcm_keys = [k for k in res if k.startswith(("twin", "single"))]
         require(all(res[k]["same"] for k in tcm_keys),
@@ -4122,6 +4315,14 @@ def main() -> int:
         ddp = ddp_phase(smi, online["paths"], online["flagship_step1"])
         say(f"ddp: phase {time.perf_counter() - t_phase:.1f} s")
 
+    with Phase("freq"):
+        t_phase = time.perf_counter()
+        sharded = freq_phase(smi, {
+            (EXP, "float32", stage): main_out[stage]
+            for stage in ("esti", "esti0")} | {
+            (EXP_CLN, "float32", "esti"): cln_out["esti"]})
+        say(f"freq: phase {time.perf_counter() - t_phase:.1f} s")
+
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
@@ -4131,7 +4332,7 @@ def main() -> int:
     # variant (T=601), kernel and nn.LSTM (with grad on for training)
     fwd_shapes = {}
     for use, rows, ms_key, lib_key, plain_key, geo_key in (
-            ("serve", [res[k] for k in lstm_keys], "ms", "library_ms",
+            ("serve", [res[k] for k in serve_keys], "ms", "library_ms",
              "plain_ms", "geometry"),
             ("train", [bwd[k] for k in lstm_keys], "fwd_ms",
              "library_fwd_ms", "plain_fwd_ms", "fwd_geometry")):
@@ -4154,7 +4355,7 @@ def main() -> int:
         {"name": "lstm_bf_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:57",
-         "max_abs_err": max([res[k]["err"] for k in lstm_keys]
+         "max_abs_err": max([res[k]["err"] for k in serve_keys]
                             + [bwd[k]["fwd_err"] for k in lstm_keys]),
          "ms": res["lstm_1"]["ms"], "plain_ms": res["lstm_1"]["plain_ms"],
          "bound_ms": res["lstm_1"]["bound_ms"],
@@ -4299,6 +4500,7 @@ def main() -> int:
     record["online"] = {f: online[f] for f in (
         "modes", "host_items_s", "native_err", "checks")}
     record["ddp"] = {k: v for k, v in ddp.items() if k != "entries"}
+    record["freq"] = {k: v for k, v in sharded.items() if k != "entries"}
     record["heads"] = dict(
         walls=heads["walls"], snr=heads["served"]["snr"],
         stream_err=heads["streamed"]["err"],
@@ -4321,6 +4523,7 @@ def main() -> int:
              "train_bf16": trained16["entries"],
              "train_bf16_cln": trained16["cln_entries"],
              "online": online["entries"], **ddp["entries"],
+             **sharded["entries"],
              "heads": heads["served"]["entries"],
              "heads_stream": heads["streamed"]["entries"],
              "l3das": heads["trained"]["entries"]}

@@ -2,12 +2,17 @@
 
     python -m eabnet_tpu_torch.cli.enhance in.wav out.wav \
         --exp-root release/composed_9mic [--output-stage esti0] \
-        [--compute-dtype bfloat16] [--device cpu] [--mesh]
+        [--compute-dtype bfloat16] [--device cpu] [--mesh | --shard-freq]
 
 The input may be a directory of wavs; the output is then a directory.
 ``--mesh`` serves batches over every visible card (one replica per card,
 ``Enhancer(mesh=...)``), in batches of the mesh's size unless
-``--batch-size`` says otherwise.
+``--batch-size`` says otherwise. ``--shard-freq`` splits each utterance's
+frequency bins over a 1 x N ('data', 'freq') mesh of ranks
+(``Enhancer(shard_freq=True)``): after building the kernels once it
+spawns one NCCL rank per visible card (``--ranks`` of them at most), or
+with ``--device cpu`` ``--ranks`` gloo ranks on the host (default 2);
+rank 0 writes the files. The two are exclusive, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,28 +45,72 @@ def main(argv=None):
     parser.add_argument("--mesh", action="store_true",
                         help="serve over every visible card: one replica "
                         "per card, each batch split over them")
+    parser.add_argument("--shard-freq", action="store_true",
+                        help="frequency-axis model parallelism: one rank "
+                        "per card (or --ranks gloo ranks with --device "
+                        "cpu) splits each utterance's bins; exclusive "
+                        "with --mesh")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks for --shard-freq (default: every "
+                        "visible card; 2 with --device cpu)")
     parser.add_argument("--batch-size", type=int, default=None,
                         help="files per batch in directory mode (default: "
                         "1, or the mesh's size with --mesh)")
     parser.add_argument("--mic-permutation", default=None,
                         help="comma-separated capture-channel order")
     args = parser.parse_args(argv)
+    if args.mesh and args.shard_freq:
+        raise SystemExit("--mesh (batch over cards) and --shard-freq (bins "
+                         "over ranks) are exclusive")
+    if args.shard_freq:
+        return shard_freq(args)
+    run(args)
 
+
+def shard_freq(args) -> None:
+    """``run`` in one spawned rank per card (NCCL), or ``args.ranks`` gloo
+    ranks on the host with ``--device cpu``, after building the kernels
+    in this process."""
+    import torch
+
+    from eabnet_tpu_torch.parallel import launch
+
+    cuda = torch.device(args.device).type == "cuda"
+    ranks = args.ranks or (torch.cuda.device_count() if cuda else 2)
+    if cuda:
+        ranks = min(ranks, torch.cuda.device_count())
+    if ranks < 1:
+        raise SystemExit("--shard-freq: no card to run on")
+    launch.build_once(cuda=cuda)
+    launch.spawn(run, ranks, (args,), backend="nccl" if cuda else "gloo")
+
+
+def run(args) -> None:
+    """Enhance the input(s) as ``args`` says: in this process, or as one
+    rank of ``--shard-freq``'s group."""
     from eabnet_tpu_torch.inference import load_enhancer
+    from eabnet_tpu_torch.parallel import make_mesh
+    from eabnet_tpu_torch.parallel.mesh import process_count, process_index
 
     perm = None
     if args.mic_permutation:
         perm = [int(x) for x in args.mic_permutation.split(",")]
-    mesh = None
-    if args.mesh:
-        from eabnet_tpu_torch.parallel import make_mesh
-
+    mesh, kw = None, {}
+    if args.shard_freq:  # rank r on card r, or every rank on the host
+        devices = ([f"cuda:{r}" for r in range(process_count())]
+                   if args.device == "cuda"
+                   else [args.device] * process_count())
+        args.device = devices[process_index()]
+        kw = dict(shard_freq=True, mesh=make_mesh(("data", "freq"), devices,
+                                                  sizes=(1, -1)))
+    elif args.mesh:
         mesh = make_mesh(devices=None if args.device == "cuda"
                          else [args.device])
+        kw = dict(mesh=mesh)
     enhancer = load_enhancer(args.exp_root, args.ckpt,
                              output=args.output_stage,
                              compute_dtype=args.compute_dtype,
-                             device=args.device, mesh=mesh)
+                             device=args.device, **kw)
     bs = args.batch_size or (mesh.size if mesh else 1)
     if mesh is not None and bs % mesh.size:
         # a smaller chunk would leave replicas computing padding
@@ -69,7 +118,8 @@ def main(argv=None):
         print(f"--batch-size rounded up to {bs}, a multiple of the mesh's "
               f"{mesh.size} devices")
     if os.path.isdir(args.input):
-        os.makedirs(args.output, exist_ok=True)
+        if process_index() == 0:
+            os.makedirs(args.output, exist_ok=True)
         names = sorted(n for n in os.listdir(args.input)
                        if n.endswith(".wav"))
         enhancer.enhance_files([os.path.join(args.input, n) for n in names],

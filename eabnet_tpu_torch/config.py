@@ -3,8 +3,9 @@
 The port's own copy of the JAX package's dataclasses (same field names,
 defaults and JSON layout), so that every ``config.json`` written by either
 package loads here unchanged. Every key is accepted, and every model form
-of the JAX package builds; what the port cannot run (a frequency mesh
-axis) is refused where it is asked for, never silently rerouted.
+of the JAX package builds; what the port cannot run (training with a
+frequency axis wider than 1, as the JAX package cannot either) is refused
+where it is asked for, never silently rerouted.
 """
 
 from __future__ import annotations
@@ -179,9 +180,11 @@ class DataConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training settings, acted on by ``train.trainer.train``.
-    ``compute_dtype`` must be "float32" or "bfloat16" and ``mesh_axes``
-    ("data",) (``require_training``): one card, or one rank per card of
-    a data-parallel process group over ``batch_size``. ``remat`` and ``remat_policy`` are
+    ``compute_dtype`` must be "float32" or "bfloat16"; ``mesh_axes`` takes
+    the JAX trainer's mesh (the leading axis over every rank, the others
+    of extent 1), so only ``data`` may be wider than 1
+    (``require_training``): one card, or one rank per card of a
+    data-parallel process group over ``batch_size``. ``remat`` and ``remat_policy`` are
     read and not acted on: they trade memory for recompute and do not
     change results."""
 
@@ -249,20 +252,29 @@ class ExperimentConfig:
             return cls.from_json(f.read())
 
 
-def require_training(cfg: ExperimentConfig) -> None:
+def require_training(cfg: ExperimentConfig, world: int = 1) -> None:
     """Refuse a training configuration the port does not run: a compute
-    dtype other than float32 and bfloat16, and mesh axes other than
-    ("data",). The data axis runs on one card or, inside a process group,
-    on every rank (``train/trainer.py``). An unknown ``device_mix`` mode
-    raises ``ValueError``, as in the JAX package."""
+    dtype other than float32 and bfloat16, and mesh axes that give an axis
+    other than ``data`` more than one of the ``world`` ranks. The mesh is
+    the JAX trainer's (``make_mesh(mesh_axes, devices)``: the leading axis
+    takes every device, the others extent 1), so ``("data", "freq")``
+    trains as ``("data",)`` does; the data axis runs on one card or,
+    inside a process group, on every rank (``train/trainer.py``). An
+    unknown ``device_mix`` mode raises ``ValueError``, as in the JAX
+    package, and so do axes without ``data``."""
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.train.compute_dtype!r}: the port trains in "
             "float32 or bfloat16 mixed precision")
     if cfg.data.device_mix not in (False, True, "loader", "parts", "scene"):
         raise ValueError(f"unknown device_mix mode {cfg.data.device_mix!r}")
-    if tuple(cfg.train.mesh_axes) != ("data",):
+    axes = tuple(cfg.train.mesh_axes)
+    if "data" not in axes:
+        raise ValueError(f"mesh_axes={axes!r}: no 'data' axis to split the "
+                         "batch over")
+    if axes[0] != "data" and world > 1:
         raise NotImplementedError(
-            f"mesh_axes={cfg.train.mesh_axes!r}: the port trains over the "
-            "'data' axis only; frequency-axis model parallelism is a later "
-            "slice (ROADMAP)")
+            f"mesh_axes={axes!r} over {world} ranks gives {axes[0]!r} "
+            f"extent {world}: training splits the batch over 'data' only, "
+            "as in the JAX package; frequency-axis model parallelism is for "
+            "serving (Enhancer(shard_freq=True), cli.enhance --shard-freq)")

@@ -24,8 +24,24 @@ the batch is padded to a multiple of the axis's size, slice k runs on
 device k, and the outputs come back in order. The slices are issued from
 one thread: the inputs are copied up first, then every replica's forward
 is queued (the forwards hold no host sync, and each card runs its own
-queue), then the outputs are read. ``shard_freq`` (frequency-axis model
-parallelism) is not ported (ROADMAP §1).
+queue), then the outputs are read. A mesh with other axes beside
+``data`` serves the same way over its ``data`` axis (the JAX package
+replicates the batch over them).
+
+``shard_freq`` (frequency-axis model parallelism) serves one utterance
+over the ranks of a ``torch.distributed`` group laid out on a ('data',
+'freq') ``mesh`` of the group's size, one rank per entry (rank r = (d,
+f), ``parallel/mesh.py::axis_group``), as the JAX package's GSPMD splits F
+over the mesh's ``freq`` axis: every rank calls the Enhancer with the same
+wavs; rank (d, f) takes rows d of the batch (padded to a multiple of
+``data``), runs the STFT on them, keeps its bins and runs the model on
+them inside ``parallel.freq.sharding`` (halo-exchanged convs along F,
+F-wide norm sums, the LSTM-BF head on its own B·F_r lanes, the post-filter
+row- and column-parallel); the estimate's bins are gathered over
+``freq`` before the iSTFT and the rows over ``data``, so each rank returns
+the whole output. int8w dequantizes on each rank. On a CUDA rank the
+hand-written kernels run as on one card, and a collective that waits past
+the group's timeout raises.
 """
 
 from __future__ import annotations
@@ -42,6 +58,9 @@ from eabnet_tpu_torch.config import ExperimentConfig
 from eabnet_tpu_torch.dsp import prepare_data, stft_to_wav
 from eabnet_tpu_torch.models import build_model
 from eabnet_tpu_torch.models.eabnet import to_reference_layout
+from eabnet_tpu_torch.parallel import freq
+from eabnet_tpu_torch.parallel.mesh import (axis_group, process_count,
+                                            process_index)
 from eabnet_tpu_torch.utils.audio_io import read_wav, resample, write_wav
 from eabnet_tpu_torch.utils.precision import float32_products
 from eabnet_tpu_torch.utils.quantize import (PackedWeights, pack_for_module,
@@ -63,7 +82,9 @@ class Enhancer:
     packed ones (``self.packed``) on ``device``. With a ``mesh``,
     ``device`` is unused: ``self.replicas`` holds one (model, packed) per
     device of the mesh's ``data`` axis, and ``self.model``/``self.packed``
-    are the first.
+    are the first. With ``shard_freq`` the rank's entry of the mesh is its
+    device, ``self.shard`` its ``parallel.freq.FreqShard`` and
+    ``self.rows`` its (index, ranks, group) on the ``data`` axis.
     """
 
     def __init__(self, cfg: ExperimentConfig, params: dict,
@@ -80,23 +101,37 @@ class Enhancer:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {compute_dtype!r}")
-        if shard_freq:
-            raise NotImplementedError(
-                "shard_freq: frequency-axis model parallelism is not ported "
-                "(ROADMAP §1, multi-card)")
-        devices = [device]
-        if mesh is not None:
-            if mesh.size != mesh.shape.get("data", 0):
-                raise NotImplementedError(
-                    f"mesh {mesh.shape}: the port serves over a 'data' axis "
-                    "only; frequency-axis model parallelism is not ported "
-                    "(ROADMAP §1, multi-card)")
-            devices = list(mesh.devices.flat)
         if "BN" in (cfg.model.eabnet.norm_type, cfg.model.gagnet.norm_type):
             raise NotImplementedError(
                 "norm_type='BN': the Enhancer applies params only, as the "
                 "JAX package's does, and has no running statistics to serve "
                 "a batch-norm model with")
+        devices, self.shard, self.rows = [device], None, None
+        if shard_freq:
+            if mesh is None or "freq" not in mesh.shape \
+                    or "data" not in mesh.shape:
+                raise ValueError(
+                    "shard_freq needs a mesh with a 'freq' axis, e.g. "
+                    "make_mesh(('data', 'freq'), devices, sizes=(1, -1))")
+            if mesh.size != process_count():
+                raise ValueError(
+                    f"shard_freq: a mesh of {mesh.size} entries for a group "
+                    f"of {process_count()} rank(s); each rank serves one "
+                    "entry of the ('data', 'freq') mesh")
+            devices = [mesh.devices.flat[process_index()]]
+            if devices[0].type == "cuda":  # NCCL's collectives use it
+                torch.cuda.set_device(devices[0])
+            index, peers, group = axis_group(mesh, "freq")
+            self.shard = freq.FreqShard(group, index, len(peers), peers,
+                                        cfg.stft.freq_bins)
+            self.rows = axis_group(mesh, "data")
+        elif mesh is not None:
+            if "data" not in mesh.shape:
+                raise ValueError(f"mesh {mesh.shape} has no 'data' axis")
+            # one replica per entry of the 'data' axis
+            devices = list(np.moveaxis(
+                mesh.devices, mesh.axis_names.index("data"), 0).reshape(
+                mesh.shape["data"], -1)[:, 0])
         self.cfg = cfg
         self.output = output
         self.pad_mode = pad_mode
@@ -116,7 +151,8 @@ class Enhancer:
                              for d in devices]
         self.model, self.packed = self.replicas[0]
         self.devices = [torch.device(d) for d in devices]
-        self._batch_quantum = len(self.replicas)
+        self._batch_quantum = (len(self.rows[1]) if self.rows
+                               else len(self.replicas))
 
     def param_bytes(self) -> int:
         """Bytes of the parameters resident on the devices: the model's in
@@ -139,13 +175,19 @@ class Enhancer:
         model, packed = self.replicas[replica]
         noisy_stft, _ = prepare_data(batch, None, self.cfg.stft)
         noisy_stft = noisy_stft.to(self.dtype)
-        if packed is not None:
-            # no parameter is tied, so the tied-weight search is skipped
-            out = functional_call(model, packed.dequantize(self.dtype),
-                                  (noisy_stft,), tie_weights=False)
-        else:
-            out = model(noisy_stft)
+        if self.shard is not None:  # this rank's bins
+            lo, hi = self.shard.owned(self.shard.bins)
+            noisy_stft = noisy_stft[:, :, lo:hi]
+        with freq.sharding(self.shard):
+            if packed is not None:
+                # no parameter is tied, so the tied-weight search is skipped
+                out = functional_call(model, packed.dequantize(self.dtype),
+                                      (noisy_stft,), tie_weights=False)
+            else:
+                out = model(noisy_stft)
         esti = out[self.output].float()
+        if self.shard is not None:
+            esti = self.shard.gather_freq(esti, dim=2)
         return stft_to_wav(to_reference_layout(esti), self.cfg.stft)
 
     def __call__(self, noisy: np.ndarray,
@@ -184,11 +226,18 @@ class Enhancer:
         """The batch padded to a multiple of the replicas, slice k through
         replica k (one slice without a mesh); every input copied up before
         any forward is queued, and no output read before every forward
-        is."""
+        is. With ``shard_freq``: this rank's rows, every row back."""
         q = self._batch_quantum
         rows = -(-batch.shape[0] // q)
         batch = np.pad(batch, ((0, rows * q - batch.shape[0]), (0, 0),
                                (0, 0)))
+        if self.shard is not None:
+            d, peers, group = self.rows
+            x = torch.from_numpy(batch[d * rows:(d + 1) * rows]).to(
+                self.device)
+            with float32_products(x.device):
+                out = freq.gather_rows(self._enhance(x), group, len(peers))
+            return out.cpu().numpy()
         ins = [torch.from_numpy(batch[k * rows:(k + 1) * rows]).to(dev)
                for k, dev in enumerate(self.devices)]
         outs = []
@@ -209,7 +258,8 @@ class Enhancer:
                       mic_permutation: Optional[list] = None,
                       batch_size: Optional[int] = None) -> None:
         """Enhance many files in batches of ``batch_size`` (default: the
-        mesh's ``data`` axis, 1 without a mesh)."""
+        mesh's ``data`` axis, 1 without a mesh). With ``shard_freq`` every
+        rank enhances and rank 0 writes."""
         if len(in_paths) != len(out_paths):
             raise ValueError("in_paths and out_paths must align")
         batch_size = batch_size or self._batch_quantum
@@ -217,6 +267,8 @@ class Enhancer:
             outs = self.enhance_batch(
                 [self._read(p) for p in in_paths[lo:lo + batch_size]],
                 mic_permutation)
+            if self.shard is not None and process_index() != 0:
+                continue
             for path, wav in zip(out_paths[lo:lo + batch_size], outs):
                 write_wav(path, self.cfg.stft.sr, wav, dtype="float")
 

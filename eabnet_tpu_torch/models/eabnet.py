@@ -13,7 +13,10 @@ one of the JAX package's three (``eabnet_tpu/models/eabnet.py``):
   frequency; ARCHITECTURE.md).
 
 The model's boundary keeps the JAX package's layout: input (B, T, F, M, 2)
--> estimate (B, T, F, 2).
+-> estimate (B, T, F, 2). Frequency-sharded (``parallel/freq.py``), F is
+the rank's bins: the U-Nets exchange halos, the bottleneck runs whole on
+every rank (the TCM-chain kernel included), and every head runs on the
+rank's own lanes, B·F_r of them for the LSTM-BF kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
                                         UNetDecoder, UNetEncoder)
 from eabnet_tpu_torch.nn.lstm import step_carried
 from eabnet_tpu_torch.nn.stepping import current
+from eabnet_tpu_torch.parallel import freq
 
 
 def to_reference_layout(esti: torch.Tensor) -> torch.Tensor:
@@ -151,7 +155,12 @@ class EaBNet(nn.Module):
         # fold (mic, ri) into channels mic-major (channel = 2 m + ri), as
         # the JAX package does; then channel-first
         x = inpt.reshape(b, t, f, 2 * m).permute(0, 3, 1, 2)
+        sh = freq.current()
+        if sh is not None:
+            sh.width = sh.bins
         x, skips = self.en(x)  # (B, C', T, F')
+        if sh is not None:
+            x = sh.whole(x)
         c_b, f_b = x.shape[1], x.shape[3]
         # bottleneck (B, T, F' * C') in the JAX package's (freq, chan) order
         x = x.permute(0, 2, 3, 1).reshape(b, t, f_b * c_b)
@@ -160,6 +169,8 @@ class EaBNet(nn.Module):
             x = getattr(self, f"stcn_{i}")(x)
             acc = acc + x
         x = acc.reshape(b, t, f_b, c_b).permute(0, 3, 1, 2)
+        if sh is not None:
+            x = sh.own(x)
         x = self.de(x, skips)  # (B, embed_dim, T, F)
         if isinstance(self.bf_map, LSTMBeamformer):
             return beamform_sum(self.bf_map(x), inpt)

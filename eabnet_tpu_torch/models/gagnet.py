@@ -3,6 +3,11 @@
 A U²Net encoder embeds the (noisy reference, previous estimate) spectra;
 q glance/gaze stages refine the estimate as ``mag * gain * e^{j phase} +
 residual``. Spectra keep the JAX package's layout (B, T, F, 2).
+Frequency-sharded (``parallel/freq.py``), F is the rank's bins: the
+encoder exchanges halos, the bottleneck features and the TCN stacks run
+whole on every rank, each gated input is row-parallel over the previous
+estimate's bins (one all-reduce for its two Denses) and the heads are
+column-parallel.
 """
 
 from __future__ import annotations
@@ -10,11 +15,13 @@ from __future__ import annotations
 from typing import List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from eabnet_tpu_torch.config import GaGNetConfig
 from eabnet_tpu_torch.nn.blocks import (Dense, SqueezedTCNGroup,
                                         U2NetEncoder, UNetEncoder)
+from eabnet_tpu_torch.parallel import freq
 
 
 def _flatten_spec(x: torch.Tensor) -> torch.Tensor:
@@ -38,8 +45,36 @@ class _GatedIn(nn.Module):
         self.in_gate = Dense(in_dim, cfg.d_feat)
 
     def gated_input(self, feat_x, pre_flat):
-        x = torch.cat([feat_x, pre_flat], dim=-1)
-        return self.in_main(x) * torch.sigmoid(self.in_gate(x))
+        sh = freq.current()
+        if sh is None:
+            x = torch.cat([feat_x, pre_flat], dim=-1)
+            return self.in_main(x) * torch.sigmoid(self.in_gate(x))
+        # row-parallel: the kernels' rows of this rank's bins in both
+        # halves of pre_flat, the features' rows and the bias on rank 0,
+        # one float32 all-reduce of both Denses' partial products
+        d, n_bins = feat_x.shape[-1], sh.bins
+        lo, hi = sh.owned(n_bins)
+        w = torch.cat([self.in_main.kernel, self.in_gate.kernel])
+        rows = [w[:, d + lo:d + hi], w[:, d + n_bins + lo:d + n_bins + hi]]
+        x, bias = pre_flat, None
+        if sh.index == 0:
+            rows.insert(0, w[:, :d])
+            x = torch.cat([feat_x, pre_flat], dim=-1)
+            bias = torch.cat([self.in_main.bias, self.in_gate.bias]).float()
+        y = sh.sum_over_freq(F.linear(x.float(), torch.cat(rows, 1).float(),
+                                      bias), "row").to(feat_x.dtype)
+        main, gate = y.chunk(2, dim=-1)
+        return main * torch.sigmoid(gate)
+
+
+def _bins(dense: Dense, x: torch.Tensor) -> torch.Tensor:
+    """A Dense whose outputs are the bins, column-parallel when sharded:
+    the rank's bins only."""
+    sh = freq.current()
+    if sh is None:
+        return dense(x)
+    lo, hi = sh.owned(sh.bins)
+    return F.linear(x, dense.kernel[lo:hi], dense.bias[lo:hi])
 
 
 class GlanceBlock(_GatedIn):
@@ -58,7 +93,7 @@ class GlanceBlock(_GatedIn):
         x = self.gated_input(feat_x, pre_flat)
         for i in range(self.p):
             x = getattr(self, f"tcn_{i}")(x)
-        return self.acti(self.head(x))  # (B, T, F)
+        return self.acti(_bins(self.head, x))  # (B, T, F)
 
 
 class GazeBlock(_GatedIn):
@@ -84,7 +119,8 @@ class GazeBlock(_GatedIn):
         x = self.gated_input(feat_x, pre_flat)
         outs = [self._stack(x, prefix) for prefix in self.prefixes]
         x_r, x_i = outs if len(outs) == 2 else outs * 2
-        return torch.stack([self.head_r(x_r), self.head_i(x_i)], dim=-1)
+        return torch.stack([_bins(self.head_r, x_r), _bins(self.head_i, x_i)],
+                           dim=-1)
 
 
 class GlanceGazeModule(nn.Module):
@@ -130,7 +166,12 @@ class GaGNet(nn.Module):
     def forward(self, inpt: torch.Tensor, pre_x: torch.Tensor
                 ) -> List[torch.Tensor]:
         x = torch.cat([inpt, pre_x], dim=-1).permute(0, 3, 1, 2)
+        sh = freq.current()
+        if sh is not None:
+            sh.width = sh.bins
         feat, _ = self.en(x)  # (B, C', T, F')
+        if sh is not None:
+            feat = sh.whole(feat)
         b, t = feat.shape[0], feat.shape[2]
         feat = feat.permute(0, 2, 3, 1).reshape(b, t, -1)  # (B, T, F' * C')
         outs = []

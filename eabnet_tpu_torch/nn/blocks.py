@@ -6,7 +6,9 @@ axis and frequency the only downsampled one. The squeezed TCN runs on
 parameter names follow the JAX package's parameter tree so that
 ``weights.load_jax_params`` maps one onto the other by name; the layouts
 are PyTorch's (see ``weights.py``). Inside ``stepping.stepping`` the
-time convs take one frame and a ring of the frames before it.
+time convs take one frame and a ring of the frames before it; inside
+``parallel/freq.py``'s ``sharding`` the frequency convs compute the
+rank's output columns from the input columns they read.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from eabnet_tpu_torch.kernels.tcm_chain import tcm_chain
 from eabnet_tpu_torch.nn.norms import NormSwitch, PReLU
 from eabnet_tpu_torch.nn.stepping import current
+from eabnet_tpu_torch.parallel import freq
 
 
 class Dense(nn.Module):
@@ -38,7 +41,8 @@ class Dense(nn.Module):
 class Conv2d(nn.Module):
     """2-D conv, kernel (O, I, kt, kf), causal in time: the left pad of
     kt-1 frames is the conv's own padding, and the frames it adds past the
-    end are dropped."""
+    end are dropped. Frequency-sharded, it computes the rank's output
+    columns (``FreqShard.conv_input``)."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int],
                  stride: Tuple[int, int]):
@@ -54,6 +58,9 @@ class Conv2d(nn.Module):
         if fr is not None:  # one frame, on the ring of the kt - 1 before
             return F.conv2d(fr.ring(self, x, kt - 1), self.kernel,
                             self.bias, self.stride)
+        sh = freq.current()
+        if sh is not None:
+            x, _ = sh.conv_input(x, self.kernel.shape[3], transposed=False)
         y = F.conv2d(x, self.kernel, self.bias, self.stride,
                      padding=(kt - 1, 0))
         return y[:, :, :x.shape[2]]
@@ -61,7 +68,7 @@ class Conv2d(nn.Module):
 
 class ConvTranspose2d(nn.Module):
     """2-D transposed conv, kernel (I, O, kt, kf), with the causal chomp of
-    the last kt-1 frames."""
+    the last kt-1 frames; frequency-sharded, the rank's output columns."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int],
                  stride: Tuple[int, int]):
@@ -80,7 +87,13 @@ class ConvTranspose2d(nn.Module):
             y = F.conv_transpose2d(fr.ring(self, x, kt - 1), self.kernel,
                                    self.bias, self.stride)
             return y[:, :, kt - 1:kt]
+        sh = freq.current()
+        keep = None
+        if sh is not None:
+            x, keep = sh.conv_input(x, self.kernel.shape[3], transposed=True)
         y = F.conv_transpose2d(x, self.kernel, self.bias, self.stride)
+        if keep is not None:
+            y = y[..., keep[0]:keep[1]]
         return y[:, :, :x.shape[2]]
 
 

@@ -1,5 +1,8 @@
 """PReLU and the four norms of the block library on channel-first maps
-(B, C, T, *rest): time is dim 2, channels dim 1."""
+(B, C, T, *rest): time is dim 2, channels dim 1. Frequency-sharded
+(``parallel/freq.py``), IN and cLN take their statistics over every
+rank's bins: the sums are all-reduced over the ``freq`` group and the
+counts use the global width."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eabnet_tpu_torch.nn.stepping import Frame, current
+from eabnet_tpu_torch.parallel import freq
 from eabnet_tpu_torch.parallel.mesh import all_reduce_sum, process_count
 
 
@@ -49,8 +53,19 @@ class InstanceNorm(_Affine):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(2, x.dim()))
-        mean = x.mean(dim=axes, keepdim=True)
-        var = torch.square(x - mean).mean(dim=axes, keepdim=True)
+        sh = freq.current()
+        if sh is None or not sh.split_map(x):
+            mean = x.mean(dim=axes, keepdim=True)
+            var = torch.square(x - mean).mean(dim=axes, keepdim=True)
+        else:  # the same two passes over every rank's bins
+            n = x.shape[2] * sh.width
+
+            def mean_of(v):
+                s = sh.sum_over_freq(v.float().sum(dim=axes, keepdim=True),
+                                     "norm")
+                return (s / n).to(x.dtype)
+            mean = mean_of(x)
+            var = mean_of(torch.square(x - mean))
         return self.affine((x - mean) / torch.sqrt(var + self.eps))
 
 
@@ -74,12 +89,17 @@ class CumulativeLayerNorm(_Affine):
             return self._step(fr, x)
         red = (1,) + tuple(range(3, x.dim()))
         n_per_step = x.numel() // (x.shape[0] * x.shape[2])
-        pr = float(n_per_step) if self.prior else 0.0
         xf = x.float()
+        total, sq = xf.sum(dim=red), torch.square(xf).sum(dim=red)
+        sh = freq.current()
+        if sh is not None and sh.split_map(x):
+            # per-frame sums over every rank's bins, before the cumsum
+            total, sq = sh.sum_over_freq(torch.stack([total, sq]), "norm")
+            n_per_step = n_per_step // x.shape[-1] * sh.width
+        pr = float(n_per_step) if self.prior else 0.0
         shape = (x.shape[0], 1, x.shape[2]) + (1,) * (x.dim() - 3)
-        total = torch.cumsum(xf.sum(dim=red), dim=1).view(shape)
-        sq = (torch.cumsum(torch.square(xf).sum(dim=red), dim=1) + pr
-              ).view(shape)
+        total = torch.cumsum(total, dim=1).view(shape)
+        sq = (torch.cumsum(sq, dim=1) + pr).view(shape)
         count = (torch.arange(1, x.shape[2] + 1, dtype=torch.float32,
                               device=x.device) * n_per_step + pr
                  ).view((1, 1, -1) + (1,) * (x.dim() - 3))

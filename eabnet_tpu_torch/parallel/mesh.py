@@ -11,15 +11,20 @@ DDP/NCCL trainer does (train_distributed.py:159-204), joined by a
   loss's frame count, the gradients and the losses, and batch norms their
   sums (``train/step.py``, ``nn/norms.py``);
 - serving: one process keeps a replica of the model on every device of a
-  :class:`Mesh`'s ``data`` axis (``inference.py::Enhancer``).
+  :class:`Mesh`'s ``data`` axis (``inference.py::Enhancer``); or, with
+  ``shard_freq``, each rank of a group takes one entry of a ('data',
+  'freq') mesh (rank r the r-th entry in row-major order), its rows of the
+  batch and its share of the bins (``parallel/freq.py``), inside the
+  subgroups of :func:`axis_group`.
 
 Without a process group the helpers below answer as one process does.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +80,26 @@ def make_mesh(axes: Sequence[str] = ("data",),
     else:
         sizes = [n] + [1] * (len(axes) - 1)
     return Mesh(flat.reshape(sizes), tuple(axes))
+
+
+def axis_group(mesh: Mesh, axis: str) -> Tuple[int, List[int], object]:
+    """The ranks of a group laid out on ``mesh`` (rank r at the r-th entry,
+    row-major) that share this rank's place on every axis but ``axis``:
+    (this rank's index along ``axis``, their global ranks in order, their
+    ``torch.distributed`` subgroup; None without a group). Every rank makes
+    every line's subgroup, in the same order, as ``new_group`` requires."""
+    from eabnet_tpu_torch.parallel.launch import GROUP_TIMEOUT_S
+
+    ranks = np.arange(mesh.size).reshape(mesh.devices.shape)
+    lines = np.moveaxis(ranks, mesh.axis_names.index(axis), -1).reshape(
+        -1, mesh.shape[axis])
+    me, mine = process_index(), None
+    for line in lines.tolist():
+        group = dist.new_group(line, timeout=datetime.timedelta(
+            seconds=GROUP_TIMEOUT_S)) if in_group() else None
+        if me in line:
+            mine = (line.index(me), line, group)
+    return mine
 
 
 def host_local_slice(global_index: int, world: int, n: int) -> range:

@@ -164,7 +164,7 @@ def train(cfg: ExperimentConfig, max_steps: Optional[int] = None,
     the batch's host-to-device bytes. On the card it runs with float32
     products (``float32_products``). In a process group it is one rank of
     a data-parallel run (module doc)."""
-    require_training(cfg)
+    require_training(cfg, process_count())
     if in_group():
         world = process_count()
         if cfg.train.batch_size % world:

@@ -50,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.cli.resample", "eabnet_tpu_torch.parallel",
             "eabnet_tpu_torch.parallel.mesh",
             "eabnet_tpu_torch.parallel.launch",
+            "eabnet_tpu_torch.parallel.freq",
             "eabnet_tpu_torch.data.l3das"} <= set(mods)
     code = (
         "import importlib, sys\n"

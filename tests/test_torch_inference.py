@@ -74,8 +74,10 @@ def test_pad_modes_differ_only_at_the_end():
 
 
 def test_options_outside_the_slice_are_refused():
-    """Frequency sharding, and a mesh with an axis beyond 'data' (what it
-    would shard), are refused (a 'data' mesh serves:
+    """Frequency sharding without a mesh that has a 'freq' axis, or with a
+    mesh whose size is not the group's (here one process), is a
+    ValueError naming 'freq', as in the JAX package (a sharded group
+    serves: tests/test_torch_freq_shard.py; a 'data' mesh:
     tests/test_torch_parallel.py); bfloat16 and int8w, once refused, now
     serve on the CPU (finite, the output's shape, close to float32 by
     tests/test_quantize.py's criteria); an unknown compute dtype is a
@@ -84,9 +86,9 @@ def test_options_outside_the_slice_are_refused():
 
     cfg = ExperimentConfig.load(os.path.join(EXP, "config.json"))
     freq_mesh = make_mesh(("data", "freq"), ["cpu", "cpu"], sizes=(1, -1))
-    for kw in ({"mesh": freq_mesh}, {"shard_freq": True}):
-        with pytest.raises(NotImplementedError):
-            Enhancer(cfg, {}, device="cpu", **kw)
+    for kw in ({"mesh": freq_mesh}, {}, {"mesh": make_mesh(devices=["cpu"])}):
+        with pytest.raises(ValueError, match="freq"):
+            Enhancer(cfg, {}, device="cpu", shard_freq=True, **kw)
     with pytest.raises(ValueError):
         Enhancer(cfg, {}, output="esti2", device="cpu")
     with pytest.raises(ValueError):

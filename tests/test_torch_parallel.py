@@ -77,11 +77,20 @@ def test_without_a_group():
 
 
 def test_require_training_takes_the_data_axis():
-    cfg = ExperimentConfig(train=TrainConfig(mesh_axes=("data",)))
-    require_training(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The JAX trainer's mesh: the leading axis over every rank, the others
+    of extent 1, so ('data', 'freq') trains as ('data',) does; a 'freq'
+    axis wider than 1 raises and names serving, and axes without 'data'
+    are refused."""
+    for axes in (("data",), ("data", "freq"), ("freq", "data")):
+        require_training(ExperimentConfig(train=TrainConfig(mesh_axes=axes)))
+    require_training(ExperimentConfig(train=TrainConfig(
+        mesh_axes=("data", "freq"))), world=4)
+    with pytest.raises(NotImplementedError, match="serving"):
         require_training(ExperimentConfig(train=TrainConfig(
-            mesh_axes=("data", "freq"))))
+            mesh_axes=("freq", "data"))), world=2)
+    with pytest.raises(ValueError, match="data"):
+        require_training(ExperimentConfig(train=TrainConfig(
+            mesh_axes=("freq",))))
 
 
 def test_data_parallel_cards_rule():

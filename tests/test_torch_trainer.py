@@ -182,13 +182,14 @@ def test_train_step_dequantizes_int16():
 
 @pytest.mark.parametrize("change", [
     {"train": {"compute_dtype": "bfloat16"}},
-    {"train": {"mesh_axes": ["data", "model"]}},
+    {"train": {"mesh_axes": ["model", "data"]}},
     {"data": {"device_mix": "parts"}},
     {"model": {"gagnet": {"norm_type": "BN"}}},
 ], ids=["bf16", "mesh", "device_mix", "bn"])
 def test_training_guard_refuses(tmp_path, change):
-    """The guard refuses meshes and compute dtypes other than float32 and
-    bfloat16, and an unknown device_mix mode with ValueError; a bf16
+    """The guard refuses a mesh that gives an axis other than 'data' more
+    than one rank (the JAX trainer's mesh), compute dtypes other than
+    float32 and bfloat16, and an unknown device_mix mode with ValueError; a bf16
     config, a device_mix mode (on the fake dataset, which is not online,
     the loader gives wav batches) and a batch-norm model pass it and
     train: one step on the CPU, and for the batch norm its running
@@ -203,8 +204,11 @@ def test_training_guard_refuses(tmp_path, change):
     cfg = ExperimentConfig.from_dict(d)
     bf16 = cfg.train.compute_dtype == "bfloat16"
     if tuple(cfg.train.mesh_axes) != ("data",):
+        # the JAX trainer's mesh: "model" leads, so over two ranks it is
+        # the wide axis; alone it has extent 1 and the config trains
         with pytest.raises(NotImplementedError):
-            require_training(cfg)
+            require_training(cfg, world=2)
+        require_training(cfg)
         return
     require_training(cfg)
     if bf16:
