@@ -257,6 +257,32 @@ Phases, each announced with its elapsed seconds:
    collectives and bytes by kind (halo, norm, gather, row) and the host
    wall of one sharded forward beside one process's; the ranks share one
    card and stage every collective through the host.
+13. longrun: the long-run tool and the end-to-end tools. (a)
+   eabnet_tpu_torch.tools.long_train with the two-phase recipe's model,
+   dtype and clip (release-sized EaBNet + GaGNet, IN, bf16, batch 8, 6-s
+   clips, offline train set, the corpus of 160 speech and 24 noise files),
+   steps and items cut (--max-steps 4 --chunk 2 --freeze-after 2
+   --steps-per-process 2 --train-items 16 --val-items 2 --workers 2), in
+   two processes as the recipe's relaunch loop runs them (longrun_call):
+   the first exits 75 after step 2, the second resumes at step 2, trains
+   the frozen chunk to step 4 and ends normally. curves.jsonl holds 1 + 2
+   x 2 rows with the JAX tool's keys and finite values; 2.ckpt and 4.ckpt
+   remain; every eabnet tensor of step 4 equals step 2's bit for bit and
+   some postnet tensor moved; each process launches 2 bf16 LSTM-BF
+   training forwards and backwards, 42 bf16 TCM-chain forwards and
+   backwards, and for its scoring 4 float32 LSTM-BF and 84 TCM-chain
+   forwards. Each chunk's wall, it/s and scoring seconds and the staging
+   seconds. (b) tools.release_report, in this process while the first
+   runs, for release/composed_9mic over release/val_set with --pad-mode
+   reference (the records' featurization): its header that of
+   release/REPORT.md, every mean within 0.001 and every margin within
+   0.002 of that block. (c) tools.demo, while the second runs, on the
+   pinned scene with sp000 and the first two noises of the run's corpus
+   and release/composed_9mic: three wavs, finite metrics, the enhanced
+   SI-SDR above the noisy mixture's. (d) tools.export_params of the
+   step-4 checkpoint: load_enhancer on the artifact serves val item 0 bit
+   for bit as an Enhancer of the checkpoint's params (cuDNN's
+   deterministic algorithms).
 
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
@@ -2518,25 +2544,10 @@ def train_bf16_phase(cfg_f32: dict, f32_losses) -> dict:
 # ---------------------------------------------------------------- online
 ONLINE_DIR = "build/chip_smoke_online"
 # the flagship recipe (examples/train_online_scene.sh, tools/long_train.py):
-# a formant-synth corpus of 160 speech and 24 noise files of 6 s (seeds of
-# tools/e2e_demo.py:38-43), its settings (tools/e2e_demo.py:47-62), 3
-# loader workers, batch 16, 12 frozen validation items
-ONLINE_SETTINGS = {
-    "audio": {"fs": 16000, "rir_method": "hybrid"},
-    "room": {"min_dim": [3, 3, 2.5], "max_dim": [10, 10, 3],
-             "rt60": [0.05, 0.7]},
-    "mic_array": {
-        "mics": [{"x": 0.0, "y": round(0.16 - 0.04 * i, 2)}
-                 for i in range(9)],
-        "ref_mic": 0, "direction": {"x": 0, "y": 1},
-        "h": [1, 1.5], "min_dist_to_wall": 0.5,
-    },
-    "target": {"dist_to_mic_array": [1, 5], "h": [1, 1.5],
-               "min_dist_to_wall": 0.5, "fixed_doa": True},
-    "noise": {"min_doa_diff_wrt_target": 5, "min_dist_to_mic_array": 0.5,
-              "n": [1, 3], "h": [1, 1.5], "SNR": [-5, 5]},
-    "noisy_dBFS": [-35, -15],
-}
+# a formant-synth corpus of 160 speech and 24 noise files of 6 s and its
+# settings (eabnet_tpu_torch.tools.e2e_demo: make_corpus's seeds and
+# SETTINGS, the JAX tool's), 3 loader workers, batch 16, 12 frozen
+# validation items
 ONLINE_CORPUS = (160, 24, 6.0)  # speech files, noise files, seconds
 ONLINE_VAL, ONLINE_BATCH, ONLINE_WORKERS = 12, 16, 3
 ONLINE_STEPS = 4        # the flagship run (scene mode)
@@ -2556,24 +2567,16 @@ def stage_online(root: str) -> dict:
     cli.datagen (ONLINE_WORKERS spawned workers)."""
     from eabnet_tpu_torch.cli.datagen import main as datagen
     from eabnet_tpu_torch.cli.split import main as split
-    from eabnet_tpu_torch.data.synth_speech import synth_noise, synth_utterance
-    from eabnet_tpu_torch.utils.audio_io import write_wav
+    from eabnet_tpu_torch.tools.e2e_demo import SETTINGS, make_corpus
 
     n_speech, n_noise, seconds = ONLINE_CORPUS
     paths = {k: os.path.join(root, k) for k in ("speech", "noise", "lists",
                                                 "val")}
-    for k in ("speech", "noise"):
-        os.makedirs(paths[k])
     t0 = time.perf_counter()
-    for i in range(n_speech):
-        write_wav(os.path.join(paths["speech"], f"sp{i:03d}.wav"), 16000,
-                  synth_utterance(seconds, 16000, seed=7000 + i))
-    for i in range(n_noise):
-        write_wav(os.path.join(paths["noise"], f"no{i:03d}.wav"), 16000,
-                  synth_noise(seconds, 16000, kind=i, seed=9000 + i))
+    make_corpus(root, n_speech=n_speech, n_noise=n_noise, seconds=seconds)
     paths["settings"] = os.path.join(root, "settings.json")
     with open(paths["settings"], "w") as f:
-        json.dump(ONLINE_SETTINGS, f)
+        json.dump(SETTINGS, f)
     t_corpus = time.perf_counter() - t0
     split(["--speech-root", paths["speech"], "--noise-root", paths["noise"],
            "--out-dir", paths["lists"]])
@@ -2895,12 +2898,13 @@ def mode_profiles(cfg_dict: dict, items, dims, corpus, smi: str) -> dict:
                                                   device_mix_batch,
                                                   mix_parts)
     from eabnet_tpu_torch.data.scene_mix import collate_scenes, mix_scene
+    from eabnet_tpu_torch.tools.e2e_demo import SETTINGS
     from eabnet_tpu_torch.train.step import (create_train_state,
                                              make_train_step)
     from eabnet_tpu_torch.utils.precision import float32_products
 
     cfg = ExperimentConfig.from_dict(cfg_dict)
-    s_max = 1 + int(ONLINE_SETTINGS["noise"]["n"][1])
+    s_max = 1 + int(SETTINGS["noise"]["n"][1])
     out = {}
     with float32_products("cuda"):
         state = create_train_state(cfg, "cuda")
@@ -4050,6 +4054,271 @@ def heads_phase(smi: str) -> dict:
                 walls=walls)
 
 
+# --------------------------------------------------------------- longrun
+LONGRUN_DIR = "build/chip_smoke_longrun"
+# examples/train_composed_two_phase.sh's command line at full width: the
+# tool's defaults (release-sized EaBNet(M=9) + GaGNet, IN, bf16, 6-s clips,
+# offline train set, the 160 + 24-file corpus and so the recipe's val
+# list) with the recipe's batch 8 and 2 workers; only steps and items cut:
+# two chunks of LONGRUN_CHUNK steps, one per process, the second frozen
+LONGRUN_CHUNK, LONGRUN_VAL = 2, 2  # steps a chunk, val items scored
+LONGRUN_ARGS = ("--max-steps", str(2 * LONGRUN_CHUNK),
+                "--chunk", str(LONGRUN_CHUNK),
+                "--freeze-after", str(LONGRUN_CHUNK),
+                "--steps-per-process", str(LONGRUN_CHUNK), "--batch", "8",
+                "--workers", "2", "--train-items", "16",
+                "--val-items", str(LONGRUN_VAL), "--seconds", "6")
+LONGRUN_CALL_TIMEOUT_S = 300
+REPORT = "release/REPORT.md"
+
+
+def longrun_call(argv) -> int:
+    """One process of the long run, as the recipe's relaunch loop starts
+    one per exit 75: the launch counters zeroed, then
+    ``long_train.main(argv)`` (the kernels' library, built by the calling
+    process, loads at the first launch). Prints {"code", "entries",
+    "run"} as its last line and returns main's code: 75 when it recycles,
+    0 at a normal end; any other exit or error propagates."""
+    from eabnet_tpu_torch.tools import long_train
+
+    zero_launches()
+    code = 0
+    try:
+        long_train.main(list(argv))
+    except SystemExit as e:
+        if e.code != long_train.EXIT_RECYCLE:
+            raise
+        code = e.code
+    print(json.dumps({"code": code, "entries": read_entries(),
+                      "run": long_train.RUN}), flush=True)
+    return code
+
+
+def check_table(label: str, ours: dict, report: dict) -> list:
+    """A written report block (``release_report``'s parse) against a
+    committed one by the eval phase's rule: every mean within
+    EVAL_MEAN_TOL, every margin within EVAL_MARGIN_TOL, in units of the
+    printed last digit (means 3 places, margins 4); returns the failed
+    checks."""
+    bad = []
+    for stage, row in report["stages"].items():
+        say(f"{label} {stage}: | {stage} | " + " | ".join(
+            ours["stages"][stage][k] for k in EVAL_KEYS) + " |")
+        say(f"{label} {stage}: report | {stage} | " + " | ".join(
+            row[k] for k in EVAL_KEYS) + " |")
+        for k in EVAL_KEYS:
+            a, b = (float(r[k].split(" ± ")[0])
+                    for r in (ours["stages"][stage], row))
+            if not abs(round((a - b) * 1e3)) <= round(EVAL_MEAN_TOL * 1e3):
+                bad.append(f"{stage} {k} {a - b:+.4f}")
+    say(f"{label}: esti - esti0 margins " + ", ".join(
+        f"{k} {ours['margins'][k]:+.4f} (report {report['margins'][k]:+.4f})"
+        for k in EVAL_KEYS))
+    bad += [f"margin {k} {ours['margins'][k] - report['margins'][k]:+.4f}"
+            for k in EVAL_KEYS
+            if not abs(round((ours["margins"][k] - report["margins"][k])
+                             * 1e4)) <= round(EVAL_MARGIN_TOL * 1e4)]
+    return bad
+
+
+def longrun_process(i: int, run: str):
+    """Start process ``i`` of the long run (``longrun_call``), its output
+    to files under LONGRUN_DIR; returns the Popen."""
+    out = [open(os.path.join(LONGRUN_DIR, f"process{i}.{k}"), "w")
+           for k in ("out", "err")]
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.longrun_call(sys.argv[1:]))",
+             "--workdir", run, *LONGRUN_ARGS], stdout=out[0], stderr=out[1])
+    finally:
+        for f in out:
+            f.close()
+
+
+def longrun_result(i: int, proc) -> dict:
+    """Wait for process ``i``; its exit code, printed record and whether
+    it resumed at the first chunk's checkpoint."""
+    code = proc.wait(timeout=LONGRUN_CALL_TIMEOUT_S)
+    with open(os.path.join(LONGRUN_DIR, f"process{i}.out")) as f:
+        text = f.read()
+    for line in text.splitlines():
+        if line.startswith("[long_train]"):
+            say(f"longrun process {i}: {line}")
+    if code not in (0, 75):
+        with open(os.path.join(LONGRUN_DIR, f"process{i}.err")) as f:
+            print(text[-4000:], f.read()[-8000:], file=sys.stderr)
+    require(code in (0, 75), f"longrun process {i}: ended with 75 or 0 "
+            f"(got {code})")
+    return dict(json.loads(text.splitlines()[-1]),
+                resumed=f"[long_train] resuming at step {LONGRUN_CHUNK}"
+                in text)
+
+
+def longrun_phase(smi: str) -> dict:
+    """The long-run tool and the end-to-end tools on the card (module
+    doc, 13): the two-phase recipe through long_train in two processes
+    (exit 75, then a fresh one that resumes), with release_report beside
+    the first and the demo beside the second in this process (host
+    scoring beside the card's work), then export_params."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from eabnet_tpu_torch.checkpoint import (latest_checkpoint, load_params,
+                                             msgpack_restore)
+    from eabnet_tpu_torch.config import ExperimentConfig
+    from eabnet_tpu_torch.eval import cal_single_metrics
+    from eabnet_tpu_torch.inference import Enhancer, load_enhancer
+    from eabnet_tpu_torch.tools import demo, export_params
+    from eabnet_tpu_torch.tools import release_report as report_tool
+    from eabnet_tpu_torch.utils.audio_io import read_wav
+    from eabnet_tpu_torch.weights import flatten_tree
+
+    shutil.rmtree(LONGRUN_DIR, ignore_errors=True)
+    os.makedirs(LONGRUN_DIR)
+    run = os.path.join(LONGRUN_DIR, "run")
+    report = os.path.join(LONGRUN_DIR, "REPORT.md")
+    demo_dir = os.path.join(LONGRUN_DIR, "demo")
+    free_card("longrun")
+    procs = []
+    try:
+        procs.append(longrun_process(1, run))
+        # release_report of composed_9mic on release/val_set with the
+        # records' featurization (no zero tail)
+        t0 = time.perf_counter()
+        report_tool.main(["--exp-root", EXP, "--val", VAL, "--out", report,
+                          "--pad-mode", "reference"])
+        report_s = time.perf_counter() - t0
+        calls = [longrun_result(1, procs[0])]
+        procs.append(longrun_process(2, run))
+        # the demo's pinned scene with process 1's corpus, the release model
+        t0 = time.perf_counter()
+        scores = demo.main([
+            "--settings", os.path.join(run, "settings.json"),
+            "--speech", os.path.join(run, "speech", "sp000.wav"),
+            "--noise-dir", os.path.join(run, "noise"), "--exp-root", EXP,
+            "--out-dir", demo_dir])
+        demo_s = time.perf_counter() - t0
+        calls.append(longrun_result(2, procs[1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say(f"longrun: staging {calls[0]['run']['staged_s']:.1f} s ({smi})")
+    for c in calls:
+        for ch in c["run"]["chunks"]:
+            say(f"longrun: chunk to step {ch['step']} (frozen "
+                f"{ch['frozen']}): wall {ch['seconds']:.2f} s, "
+                f"{ch['it_per_sec']:.3f} it/s, scoring "
+                f"{ch['score_s']:.2f} s ({smi})")
+    require([c["code"] for c in calls] == [75, 0] and not calls[0]["resumed"]
+            and calls[1]["resumed"] and [
+                [(ch["step"], ch["frozen"]) for ch in c["run"]["chunks"]]
+                for c in calls] == [[(2, False)], [(4, True)]],
+            "longrun: the first process trains to step 2 and exits 75, the "
+            "second resumes at step 2, trains the frozen chunk to step 4 "
+            "and ends normally")
+
+    with open(os.path.join(run, "curves.jsonl")) as f:
+        rows = [json.loads(x) for x in f if x.strip()]
+    say(f"longrun: curves {rows}")
+    chunk_keys = ["step", "stage", "frozen", "it_per_sec", *EVAL_KEYS]
+    require([(r["step"], r["stage"]) for r in rows] == [
+        (-1, "noisy"), (2, "esti0"), (2, "esti"), (4, "esti0"),
+        (4, "esti")] and list(rows[0]) == ["step", "stage", *EVAL_KEYS]
+        and all(list(r) == chunk_keys for r in rows[1:])
+        and all(np.isfinite(r[k]) for r in rows for k in EVAL_KEYS),
+        "longrun: curves.jsonl holds 1 + 2 x 2 rows with the JAX tool's keys "
+        "and finite values")
+
+    ckpt_dir = os.path.join(run, "ckpt")
+    ckpts = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".ckpt"))
+    require(ckpts == ["2.ckpt", "4.ckpt"], f"longrun: checkpoints {ckpts} "
+            "(pruning keeps the newest 2, as the JAX rule does)")
+    params = {}
+    for s in (2, 4):
+        with open(os.path.join(ckpt_dir, f"{s}.ckpt"), "rb") as f:
+            params[s] = flatten_tree(msgpack_restore(f.read())["state"]
+                                     ["params"])
+    eab = [k for k in params[2] if k.startswith("eabnet.")]
+    post = [k for k in params[2] if k.startswith("postnet.")]
+    moved = [k for k in post if not np.array_equal(params[2][k],
+                                                   params[4][k])]
+    require(eab and all(np.array_equal(params[2][k], params[4][k])
+                        for k in eab) and moved,
+            f"longrun: the frozen chunk keeps all {len(eab)} eabnet tensors "
+            f"bit for bit; {len(moved)} of {len(post)} postnet tensors moved")
+
+    # one process's launches: 2 bf16 train steps of batch 8 and the 2
+    # stages' float32 forwards of the val items, once per chunk
+    want = {"lstm_bf_fwd_train_bf16": LONGRUN_CHUNK,
+            "lstm_bf_bwd_bf16": LONGRUN_CHUNK,
+            "tcm_chain_fwd_bf16": 21 * LONGRUN_CHUNK,
+            "tcm_chain_bwd_bf16": 21 * LONGRUN_CHUNK,
+            "lstm_bf_fwd": 2 * LONGRUN_VAL,
+            "tcm_chain_fwd": 2 * 21 * LONGRUN_VAL}
+    for i, c in enumerate(calls, 1):
+        say(f"longrun process {i}: launches by C entry {c['entries']}")
+    require(all(c["entries"] == want for c in calls),
+            f"longrun: each process launches {want} (its chunk's bf16 "
+            f"training forms, the frozen chunk's too, and the float32 "
+            f"serving forms of its scoring)")
+    entries = {k: sum(c["entries"].get(k, 0) for c in calls) for k in want}
+
+    # the report against release/REPORT.md's block
+    with open(report) as f, open(REPORT) as g:
+        head, ref_head = f.read().split("\n## ")[0], g.read().split(
+            "\n## ")[0]
+    ours, ref = release_report(report)[VAL], release_report(REPORT)[VAL]
+    bad = check_table("longrun release_report", ours, ref)
+    say(f"longrun: release_report scored {ours['n']} items x 3 stages in "
+        f"{report_s:.1f} s beside process 1 ({smi})")
+    require(head == ref_head and ours["n"] == ref["n"] and not bad,
+            f"longrun release_report: the header of {REPORT}, every mean "
+            f"within {EVAL_MEAN_TOL:g} and every margin within "
+            f"{EVAL_MARGIN_TOL:g} of its {VAL} block"
+            + (f" (outside: {bad})" if bad else ""))
+
+    # export_params of step 4; the artifact serves as the checkpoint does
+    ck4 = os.path.join(ckpt_dir, "4.ckpt")
+    exported = os.path.join(LONGRUN_DIR, "export")
+    path = export_params.main(["--exp-root", run, "--ckpt", ck4, "--out",
+                               exported])
+    _, item0 = read_wav(os.path.join(run, "val", "noisy", "00000.wav"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        served = load_enhancer(exported, device="cuda")(item0)
+        cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+        direct = Enhancer(cfg, load_params(ck4), device="cuda")(item0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    require(latest_checkpoint(exported) == path
+            and os.path.basename(path) == "4.params"
+            and np.array_equal(served, direct),
+            "longrun export_params: load_enhancer on the artifact serves val "
+            "item 0 bit for bit as an Enhancer of the checkpoint's params")
+
+    # the demo's wavs and scores
+    _, noisy = read_wav(os.path.join(demo_dir, "noisy.wav"))
+    _, clean = read_wav(os.path.join(demo_dir, "clean.wav"))
+    noisy_sdr = cal_single_metrics(clean, noisy[0], noisy[0])["si_sdr"]
+    say(f"longrun demo: {scores}, noisy SI-SDR {noisy_sdr:.3f} dB "
+        f"({demo_s:.1f} s)")
+    require(sorted(os.listdir(demo_dir)) == ["clean.wav", "enhanced.wav",
+                                             "noisy.wav"]
+            and all(np.isfinite(v) for v in scores.values() if v is not None)
+            and scores["si_sdr"] > noisy_sdr,
+            "longrun demo: three wavs written, every metric finite, the "
+            "enhanced SI-SDR above the noisy one")
+    return dict(entries=entries, staged_s=calls[0]["run"]["staged_s"],
+                chunks=[ch for c in calls for ch in c["run"]["chunks"]],
+                curves=rows[-2:], report_s=report_s, demo_s=demo_s,
+                demo_si_sdr=scores["si_sdr"], noisy_si_sdr=noisy_sdr)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import numpy as np
@@ -4323,6 +4592,11 @@ def main() -> int:
             (EXP_CLN, "float32", "esti"): cln_out["esti"]})
         say(f"freq: phase {time.perf_counter() - t_phase:.1f} s")
 
+    with Phase("longrun"):
+        t_phase = time.perf_counter()
+        longrun = longrun_phase(smi)
+        say(f"longrun: phase {time.perf_counter() - t_phase:.1f} s")
+
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
         return {k: 3 * res[twin][k] + 18 * res[single][k]
@@ -4501,6 +4775,7 @@ def main() -> int:
         "modes", "host_items_s", "native_err", "checks")}
     record["ddp"] = {k: v for k, v in ddp.items() if k != "entries"}
     record["freq"] = {k: v for k, v in sharded.items() if k != "entries"}
+    record["longrun"] = {k: v for k, v in longrun.items() if k != "entries"}
     record["heads"] = dict(
         walls=heads["walls"], snr=heads["served"]["snr"],
         stream_err=heads["streamed"]["err"],
@@ -4514,7 +4789,8 @@ def main() -> int:
     # that path's run and read just after it: one forward of composed_9mic
     # (slice) and of eabnet_9mic_cln (cln), every frame of the cLN stream,
     # the float32 train steps, one forward of each model in each
-    # low-precision mode, the bf16 train steps of both models
+    # low-precision mode, the bf16 train steps of both models, the two
+    # processes of the long run (each zeroes its own counters)
     paths = {"slice": main_entries, "cln": cln_entries,
              "stream": streamed["entries"], "train": trained["entries"],
              **{p: v["entries"] for p, v in lowp.items()},
@@ -4526,7 +4802,8 @@ def main() -> int:
              **sharded["entries"],
              "heads": heads["served"]["entries"],
              "heads_stream": heads["streamed"]["entries"],
-             "l3das": heads["trained"]["entries"]}
+             "l3das": heads["trained"]["entries"],
+             "longrun": longrun["entries"]}
     for k in record["kernels"]:
         entries, main_path = ROW_ENTRIES[k["name"]]
         k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)

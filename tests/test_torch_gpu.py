@@ -744,3 +744,33 @@ def test_heads_on_card_match_golden(cuda, head):
         ref = golden[f"{stage}_{head}"]
         assert 10 * np.log10(np.sum(ref ** 2)
                              / np.sum((ref - out) ** 2)) >= 40, stage
+
+
+@pytest.mark.gpu
+def test_e2e_demo_on_card(cuda, tmp_path):
+    """The port's whole-stack demo on the card at the default 9-mic
+    model, cut to 2 steps and 2 val items: online synthesis in spawned
+    workers, float32 training through the kernels, checkpoint, scoring."""
+    from eabnet_tpu_torch.tools import e2e_demo
+
+    l0, b0 = double_lstm.launches, tcm_chain.bwd_launches
+    means = e2e_demo.main(["--steps", "2", "--val-items", "2", "--workdir",
+                           str(tmp_path), "--workers", "2"])
+    assert sorted(means) == ["composed", "model", "noisy"]
+    assert all(np.isfinite(v) for m in means.values() for v in m.values())
+    assert double_lstm.launches > l0 and tcm_chain.bwd_launches > b0
+    assert (tmp_path / "ckpt" / "2.ckpt").exists()
+
+
+@pytest.mark.gpu
+def test_long_train_tiny_raises_on_card(cuda, tmp_path):
+    """--tiny is a CPU wiring mode: on the card its TCN width 16 reaches
+    the TCM-chain kernel's wrapper, which raises (no fallback)."""
+    from eabnet_tpu_torch.tools import long_train
+
+    with pytest.raises(ValueError, match="tcm_chain kernel takes C=64"):
+        long_train.main([
+            "--workdir", str(tmp_path), "--tiny", "--max-steps", "2",
+            "--chunk", "2", "--train-items", "2", "--val-items", "1",
+            "--corpus-speech", "21", "--corpus-noise", "2", "--seconds", "1",
+            "--batch", "2", "--workers", "1"])

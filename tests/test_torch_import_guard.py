@@ -51,7 +51,12 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.parallel.mesh",
             "eabnet_tpu_torch.parallel.launch",
             "eabnet_tpu_torch.parallel.freq",
-            "eabnet_tpu_torch.data.l3das"} <= set(mods)
+            "eabnet_tpu_torch.data.l3das",
+            "eabnet_tpu_torch.tools.e2e_demo",
+            "eabnet_tpu_torch.tools.long_train",
+            "eabnet_tpu_torch.tools.release_report",
+            "eabnet_tpu_torch.tools.export_params",
+            "eabnet_tpu_torch.tools.demo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -118,24 +123,36 @@ def test_a_loader_worker_loads_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def imported_names(path):
+    """Every module name a source imports, at any depth, by statement or
+    by ``import_module``/``__import__`` of a constant."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(
+                  node.func, "id", "")) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
 def test_no_source_names_a_forbidden_module():
     for path in SOURCES:
-        with open(path) as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            elif (isinstance(node, ast.Call)
-                  and getattr(node.func, "attr", getattr(
-                      node.func, "id", "")) in ("import_module",
-                                                "__import__")
-                  and node.args and isinstance(node.args[0], ast.Constant)):
-                names = [node.args[0].value]
-            for n in names:
-                assert n.split(".")[0] not in FORBIDDEN, (path, n)
+        for n in imported_names(path):
+            assert n.split(".")[0] not in FORBIDDEN, (path, n)
+
+
+def test_no_source_imports_the_repos_jax_tools():
+    """The port keeps its own copies of the repo's ``tools/`` and
+    ``examples/`` scripts (``eabnet_tpu_torch/tools/``), which import the
+    JAX package; no port source imports them."""
+    for path in SOURCES:
+        for n in imported_names(path):
+            assert n.split(".")[0] not in ("tools", "examples"), (path, n)
 
 
 def test_only_load_image_imports_pil():
