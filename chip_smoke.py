@@ -24,7 +24,12 @@ Phases, each announced with its elapsed seconds:
    7, 8 and 16, each with its cooperative launch (blocks, blocks per SM,
    tile rounds per block) and its bound also with every product as three
    TF32 products on the tensor cores; a second launch must give the same
-   bits.
+   bits. Then the four TCM-chain forms (float32 and bf16, forward and
+   backward) at the squeezed widths below 64 that the repo's configs run
+   (C = 16 and 12 of long_train --tiny, 24 of the quality gate's model,
+   NARROW_GROUPS; the wrapper pads them to the kernels' 64), seeded groups
+   at B = 8, T = 601 (the bf16 backward at B = 2), each by its rule at
+   full width, with its time and its bound at its own C.
 4. slice: release/composed_9mic through load_enhancer on the card, with
    torch's default TF32 flags as a user has them. One item alone, with the
    kernels' launch counts read around that forward and the output held
@@ -283,6 +288,20 @@ Phases, each announced with its elapsed seconds:
    step-4 checkpoint: load_enhancer on the artifact serves val item 0 bit
    for bit as an Enhancer of the checkpoint's params (cuDNN's
    deterministic algorithms).
+14. tails: the last port module and the narrow widths on the card. (a)
+   eabnet_tpu_torch.tools.tail_sensitivity at TAILS_CUT (2 items of 2 s
+   of the study's 48 x 6 s) with release/eabnet_9mic_cln over the long
+   run's staged corpus, in a process started beside the long run once its
+   data is staged: the report's text, its 9 rows and 4 deltas against the
+   JAX tool's golden (tests/golden/torch_port_tails.json) at its printed
+   digits, as (b) of the longrun phase (a PESQ mean at a branch passes
+   where one-ulp nudges of the estimates reach it), and its 12 LSTM-BF
+   launches. (b) long_train --tiny (TCN widths 16 and 12) on the README's
+   tiny recipe in this process, --dtype float32 and bf16, each 2 steps
+   with its launches by C entry, on the data that the same command with
+   --platform cpu staged; the float32 run's step-1 losses within 1e-5
+   (relative) of that CPU run's, a child process beside the card's work,
+   under cuDNN's deterministic algorithms.
 
 The line before the last is the JSON record of the kernels, the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before them.
@@ -605,6 +624,60 @@ def lstm_case(bf_map, lanes: int, t: int, seed: int):
                 geometry=fwd_geometry(lanes, t, ms, library))
 
 
+def width_name(twin: bool, w) -> str:
+    """A chain's form for the log: its branch count and K, and its width
+    C where that is not the kernels' 64."""
+    c = w[0].shape[-1]
+    return (f"{'twin' if twin else 'single'} K={w[1].shape[1]}"
+            + ("" if c == 64 else f" C={c}"))
+
+
+# the causal IN TCN groups below the kernels' width that the repo's
+# configs run, zero-padded to 64 by the wrapper: (C, twin, K, dilations)
+NARROW_GROUPS = {
+    "tiny_eabnet": (16, True, 5, (1, 2)),  # long_train --tiny
+    "tiny_gagnet": (12, False, 3, (1, 2)),
+    "gate_eabnet": (24, True, 5, (1, 2, 4)),  # the quality gate's model
+}
+NARROW_B, NARROW_T = 8, 601  # long_train --tiny's batch, 6-s items
+NARROW_B_BWD16 = 2  # the bf16 backward's plain probes run on the CPU too
+
+
+def narrow_group(c: int, twin: bool, k: int, dils, seed: int):
+    """A TCN group of width C on the card: the port's seeded initialisers
+    (the JAX package's), slopes, scales and biases moved off their init."""
+    import torch
+
+    from eabnet_tpu_torch.nn.blocks import SqueezedTCNGroup
+
+    torch.manual_seed(seed)
+    group = SqueezedTCNGroup(k, c, 256, dils, twin_gate=twin)
+    with torch.no_grad():
+        for name, p in group.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(0.0, 0.5)
+            elif name.endswith("scale"):
+                p.uniform_(0.5, 1.5)
+            elif name.endswith("norm.bias"):
+                p.uniform_(-0.5, 0.5)
+    return group.cuda()
+
+
+def narrow_cases() -> dict:
+    """Each narrow group through the four TCM-chain forms: float32 and
+    bf16, forward and backward, against their plain versions."""
+    out = {}
+    for key, (c, twin, k, dils) in NARROW_GROUPS.items():
+        group = narrow_group(c, twin, k, dils, seed=60 + c)
+        out[key] = dict(
+            fwd=tcm_case(group, NARROW_B, NARROW_T, seed=61 + c),
+            bwd=tcm_bwd_case(group, NARROW_B, NARROW_T, seed=62 + c),
+            fwd_bf16=tcm_lowp_case(group, NARROW_B, NARROW_T, seed=63 + c),
+            bwd_bf16=tcm_bwd_lowp_case(group, NARROW_B_BWD16, NARROW_T,
+                                       seed=64 + c))
+    return out
+
+
 def tcm_case(group, b: int, t: int, seed: int):
     """TCM-chain kernel vs plain version for one group at (B, T)."""
     import torch
@@ -624,8 +697,7 @@ def tcm_case(group, b: int, t: int, seed: int):
                                 dils, twin)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    name = "twin K=%d" % w[1].shape[1] if twin else \
-        "single K=%d" % w[1].shape[1]
+    name = width_name(twin, w)
     say(f"tcm_chain {name} B={b} T={t}: max|kernel-plain| {err:.3e} "
         f"(tolerance {KERNEL_ATOL:g}), "
         f"max|kernel-f64| {(out.double() - ref64).abs().max().item():.3e}, "
@@ -636,7 +708,8 @@ def tcm_case(group, b: int, t: int, seed: int):
     ms = cuda_ms(lambda: tcm_chain(x, w, dils, twin), reps=50)
     plain = cuda_ms(lambda: tcm_chain_reference(x, w, dils, twin), reps=10)
     tcm_chain.launches = before
-    p, k, c, d = len(dils), w[1].shape[1], 64, 256
+    # at the chain's own width C (a narrower one runs zero-padded to 64)
+    p, k, c, d = len(dils), w[1].shape[1], w[0].shape[-1], 256
     nb = 2 if twin else 1
     flops = 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
     # x in, y out, and the weights: wi, the branch convs, wo, and the
@@ -868,7 +941,7 @@ def tcm_bwd_case(group, b: int, t: int, seed: int):
             flip_max = max(flip_max, near.max().item())
     ok = (fwd_ok and passes(rep) and flips_ok
           and (flips > 0 or passes(own)))
-    name = ("twin" if twin else "single") + " K=%d" % w[1].shape[1]
+    name = width_name(twin, w)
     zero_ok = twin or (dw[2].abs().max().item() == 0.0
                        and dw[4][:, 1].abs().max().item() == 0.0)
     say(f"tcm_chain bwd {name} B={b} T={t}: recomputed forward "
@@ -903,7 +976,7 @@ def tcm_bwd_case(group, b: int, t: int, seed: int):
     plain = cuda_ms(lambda: K.tcm_chain_bwd_reference(x, dy, w, dils, twin),
                     reps=3, warmup=1)
     K.tcm_chain.bwd_launches = before
-    p, k, c, d = len(dils), w[1].shape[1], 64, 256
+    p, k, c, d = len(dils), w[1].shape[1], w[0].shape[-1], 256
     nb = 2 if twin else 1
     # the recompute (one forward) and two products per forward product
     flops = 3 * 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
@@ -1646,7 +1719,7 @@ def tcm_lowp_case(group, b: int, t: int, seed: int) -> dict:
     w16 = tuple(w.bfloat16().contiguous() for w in w32)
     x16 = x.bfloat16()
     dils, twin, k = group.dilations, group.twin_gate, w32[1].shape[1]
-    name = f"{'twin' if twin else 'single'} K={k}"
+    name = width_name(twin, w32)
     before = tcm_chain.launches
     out = tcm_chain(x16, w16, dils, twin)
     same = torch.equal(out, tcm_chain(x16, w16, dils, twin))
@@ -1667,7 +1740,7 @@ def tcm_lowp_case(group, b: int, t: int, seed: int) -> dict:
     plain = cuda_ms(lambda: tcm_chain_reference(x16, w16, dils, twin),
                     reps=10)
     tcm_chain.launches = before
-    p, c, d = len(dils), 64, 256
+    p, c, d = len(dils), w32[0].shape[-1], 256
     nb = 2 if twin else 1
     flops = 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
     nbytes = 2.0 * (2 * b * t * d + p * (d * c + nb * k * c * c + c * d
@@ -2282,7 +2355,7 @@ def tcm_bwd_lowp_case(group, b: int, t: int, seed: int) -> dict:
     w32 = tuple(w.detach() for w in group.stacked_weights())
     w16 = tuple(w.bfloat16().contiguous() for w in w32)
     dils, twin, k = group.dilations, group.twin_gate, w32[1].shape[1]
-    name = f"tcm_chain bf16 bwd {'twin' if twin else 'single'} K={k} B={b}"
+    name = f"tcm_chain bf16 bwd {width_name(twin, w32)} B={b}"
     before = (K.tcm_chain.launches, K.tcm_chain.bwd_launches)
     dx, dw, acts = K._launch_bwd(x16, dy16, w16, dils, twin,
                                  activations=True)
@@ -2364,7 +2437,7 @@ def tcm_bwd_lowp_case(group, b: int, t: int, seed: int) -> dict:
                                                       twin),
                     reps=3, warmup=1)
     K.tcm_chain.launches, K.tcm_chain.bwd_launches = before
-    c, d = 64, 256
+    c, d = w32[0].shape[-1], 256
     nb = 2 if twin else 1
     flops = 3 * 2.0 * b * t * p * (d * c + nb * k * c * c + c * d)
     wvals = p * (d * c + nb * k * c * c + c * d + 9 * c)
@@ -4078,11 +4151,12 @@ def longrun_call(argv) -> int:
     ``long_train.main(argv)`` (the kernels' library, built by the calling
     process, loads at the first launch). Prints {"code", "entries",
     "run"} as its last line and returns main's code: 75 when it recycles,
-    0 at a normal end; any other exit or error propagates."""
+    0 at a normal end; any other exit or error propagates. "seconds":
+    main's wall in this process."""
     from eabnet_tpu_torch.tools import long_train
 
     zero_launches()
-    code = 0
+    code, t0 = 0, time.perf_counter()
     try:
         long_train.main(list(argv))
     except SystemExit as e:
@@ -4090,7 +4164,8 @@ def longrun_call(argv) -> int:
             raise
         code = e.code
     print(json.dumps({"code": code, "entries": read_entries(),
-                      "run": long_train.RUN}), flush=True)
+                      "run": long_train.RUN,
+                      "seconds": time.perf_counter() - t0}), flush=True)
     return code
 
 
@@ -4155,12 +4230,14 @@ def longrun_result(i: int, proc) -> dict:
                 in text)
 
 
-def longrun_phase(smi: str) -> dict:
+def longrun_phase(smi: str, beside=None) -> dict:
     """The long-run tool and the end-to-end tools on the card (module
     doc, 13): the two-phase recipe through long_train in two processes
     (exit 75, then a fresh one that resumes), with release_report beside
     the first and the demo beside the second in this process (host
-    scoring beside the card's work), then export_params."""
+    scoring beside the card's work), then export_params. ``beside(run)``
+    is called once the first process has staged the run's data: the next
+    phase's processes start then, beside the long run's."""
     import shutil
 
     import numpy as np
@@ -4191,6 +4268,12 @@ def longrun_phase(smi: str) -> dict:
         report_tool.main(["--exp-root", EXP, "--val", VAL, "--out", report,
                           "--pad-mode", "reference"])
         report_s = time.perf_counter() - t0
+        staged = os.path.join(run, ".staged")
+        while beside and not os.path.exists(staged) \
+                and procs[0].poll() is None:
+            time.sleep(0.5)
+        if beside and os.path.exists(staged):
+            beside(run)
         calls = [longrun_result(1, procs[0])]
         procs.append(longrun_process(2, run))
         # the demo's pinned scene with process 1's corpus, the release model
@@ -4319,6 +4402,307 @@ def longrun_phase(smi: str) -> dict:
                 demo_si_sdr=scores["si_sdr"], noisy_si_sdr=noisy_sdr)
 
 
+TAILS_DIR = "build/chip_smoke_tails"
+TAILS_GOLDEN = "tests/golden/torch_port_tails.json"
+# tools/tail_sensitivity.py's study is 48 items x 3 tail models at 6 s;
+# the cut renders every model and scores every stage on 2 items of 2 s
+# (PERF.md §4): tools.tail_sensitivity's own flags, no seed or scene chosen
+TAILS_CUT = ("--items", "2", "--clip", "2")
+# the staging it reads: longrun's (long_train's corpus of 160 speech and
+# 24 noise files of 6 s and its split); stage_data's arguments after root
+TAILS_STAGING = (160, 24, 6.0, 16, LONGRUN_VAL, 2)
+TAILS_METHODS = ("hybrid", "hybrid-sabine", "ism")
+TAILS_STAGES = ("noisy", "esti0", "esti")
+TAILS_CALL_TIMEOUT_S = 300
+# long_train --tiny, the reduced model of wiring dry runs (TCN widths 16
+# and 12), at the README's tiny recipe: 2 steps of 2 one-second items
+TINY_ARGS = ("--tiny", "--max-steps", "2", "--chunk", "2",
+             "--train-items", "4", "--val-items", "2", "--corpus-speech",
+             "42", "--corpus-noise", "2", "--seconds", "1", "--batch", "2",
+             "--workers", "1")
+TINY_LOSS_RTOL = 1e-5
+
+
+def tails_call(argv) -> int:
+    """tools.tail_sensitivity in a process of its own, its launch
+    counters zeroed first; prints {"entries", "seconds": main's wall} as
+    its last line."""
+    from eabnet_tpu_torch.tools import tail_sensitivity
+
+    zero_launches()
+    t0 = time.perf_counter()
+    tail_sensitivity.main(list(argv))
+    print(json.dumps({"entries": read_entries(),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def parse_tails(text: str) -> dict:
+    """The tail-sensitivity report's two tables as printed: {"rows":
+    {method: {stage: {metric: "x.xxx"}}}, "deltas": {method: {stage:
+    {metric: "+x.xxx"}}}}, and its lines without numbers ("text")."""
+    out = {"rows": {}, "deltas": {}, "text": []}
+    table = "rows"
+    for line in text.splitlines():
+        if line.startswith("Deltas"):
+            table = "deltas"
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if line.startswith("| ") and cells[0] in TAILS_METHODS:
+            out[table].setdefault(cells[0], {})[cells[1]] = dict(zip(
+                ("si_sdr", "pesq", "estoi", "stoi"), cells[2:]))
+        else:
+            out["text"].append(line)
+    return out
+
+
+def check_tails(ours: dict, golden: dict, nudged=None) -> list:
+    """The port tool's tables against the JAX tool's (``parse_tails`` of
+    each) by the eval phase's rule on printed digits: every mean within
+    EVAL_MEAN_TOL (one unit of the last digit), every delta within
+    EVAL_MARGIN_TOL, the text lines equal. A PESQ mean outside its limit
+    passes where ``nudged(method, stage)`` (the means that one-ulp nudges
+    of the items' estimates can give) holds one within it, and so does
+    its delta; returns the failed checks."""
+    g = golden["table"]
+    bad = [] if ours["text"] == g["text"] else ["the report's text lines"]
+    reach = {}
+
+    def within(a, b, tol, method, stage, key, delta=False):
+        if abs(round((float(a) - float(b)) * 1e3)) <= round(tol * 1e3):
+            return True
+        if nudged is None or key != "pesq":
+            return False
+        for m in ((method, stage), ("hybrid", stage)):
+            if m not in reach:
+                reach[m] = nudged(*m)
+        if delta:
+            cands = [x - y for x in reach[method, stage]
+                     for y in reach["hybrid", stage]]
+        else:
+            cands = reach[method, stage]
+        ok = any(abs(c - float(b)) <= tol + 5e-4 for c in cands)
+        say(f"tails: {method} {stage} {key}{' delta' if delta else ''} "
+            f"{a} (JAX {b}) outside its limit; one-ulp nudges of the "
+            f"estimates reach it: {ok}")
+        return ok
+
+    for table, tol in (("rows", EVAL_MEAN_TOL), ("deltas", EVAL_MARGIN_TOL)):
+        if sorted(ours[table]) != sorted(g[table]):
+            bad.append(f"{table}: models {sorted(ours[table])}")
+            continue
+        for method, stages in g[table].items():
+            for stage, row in stages.items():
+                got = ours[table][method].get(stage, {})
+                for key, want in row.items():
+                    if key not in got or not within(
+                            got[key], want, tol, method, stage, key,
+                            table == "deltas"):
+                        bad.append(f"{table} {method} {stage} {key} "
+                                   f"{got.get(key)} (JAX {want})")
+    return bad
+
+
+def tails_nudges(render_root: str, exp: str):
+    """``nudged(method, stage)`` for check_tails: every mean PESQ over the
+    items of a rendered set that one-ulp nudges (EVAL_NUDGES each) of the
+    items' estimates give, the estimates unnudged included."""
+    import itertools
+
+    import numpy as np
+
+    from eabnet_tpu_torch.data.datasets import OfflineMcseDataset
+    from eabnet_tpu_torch.eval.pesq import pesq
+    from eabnet_tpu_torch.inference import load_enhancer
+
+    def nudged(method, stage):
+        val = OfflineMcseDataset(os.path.join(render_root, method))
+        fn = (lambda n: n[0]) if stage == "noisy" else load_enhancer(
+            exp, output=stage, device="cuda")
+        rng = np.random.default_rng(0)
+        eps = float(np.finfo(np.float32).eps)
+        per_item = []
+        for i in range(len(val)):
+            noisy, clean = val[i]
+            clean = np.asarray(clean).reshape(-1)
+            esti = np.asarray(fn(np.atleast_2d(noisy)), np.float32)
+            per_item.append(sorted({pesq(16000, clean, e, "wb") for e in [
+                esti] + [(esti * (1 + eps * rng.standard_normal(
+                    esti.shape))).astype(np.float32)
+                    for _ in range(EVAL_NUDGES)]}))
+        return [float(np.mean(c)) for c in itertools.product(*per_item)]
+
+    return nudged
+
+
+def child(name: str, code: str, argv, env=None):
+    """``python -c code argv`` with its output to files under TAILS_DIR."""
+    out = [open(os.path.join(TAILS_DIR, f"{name}.{k}"), "w")
+           for k in ("out", "err")]
+    try:
+        return subprocess.Popen([sys.executable, "-c", code, *argv],
+                                stdout=out[0], stderr=out[1], env=env)
+    finally:
+        for f in out:
+            f.close()
+
+
+def child_result(name: str, proc) -> dict:
+    """Wait for a child; its last line's record, or a failed check with
+    the ends of its output."""
+    code = proc.wait(timeout=TAILS_CALL_TIMEOUT_S)
+    with open(os.path.join(TAILS_DIR, f"{name}.out")) as f:
+        text = f.read()
+    if code != 0:
+        with open(os.path.join(TAILS_DIR, f"{name}.err")) as f:
+            print(text[-4000:], f.read()[-8000:], file=sys.stderr)
+    require(code == 0, f"tails: the {name} process ends normally (got "
+            f"{code})")
+    return json.loads(text.splitlines()[-1])
+
+
+def start_tails(run: str) -> dict:
+    """The tails phase's children, started beside the long run once its
+    data is staged: tools.tail_sensitivity on the card at TAILS_CUT over
+    the run's corpus, and long_train --tiny --dtype float32 on the CPU."""
+    import shutil
+
+    shutil.rmtree(TAILS_DIR, ignore_errors=True)
+    os.makedirs(TAILS_DIR)
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.{}(sys.argv[1:]))"
+    return {
+        "tails": child("tails", code.format("tails_call"), [
+            "--workdir", run, "--exp-root", EXP_CLN, "--out",
+            os.path.join(TAILS_DIR, "TAIL_SENSITIVITY.md"), "--render-root",
+            os.path.join(TAILS_DIR, "render"), *TAILS_CUT]),
+        "tiny_cpu": child("tiny_cpu", code.format("longrun_call"), [
+            "--workdir", os.path.join(TAILS_DIR, "tiny_cpu"), "--platform",
+            "cpu", "--dtype", "float32", *TINY_ARGS],
+            env=dict(os.environ, OMP_NUM_THREADS="2"))}
+
+
+def tiny_run(work: str, dtype: str) -> dict:
+    """long_train --tiny on the card in this process, every launch counter
+    zeroed just before and read just after, under cuDNN's deterministic
+    algorithms; {"entries", "run", "seconds"}."""
+    import torch
+
+    from eabnet_tpu_torch.tools import long_train
+
+    t0 = time.perf_counter()
+    zero_launches()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        long_train.main(["--workdir", work, "--platform", "default",
+                         "--dtype", dtype, *TINY_ARGS])
+    return dict(entries=read_entries(), run=json.loads(json.dumps(
+        long_train.RUN)), seconds=time.perf_counter() - t0)
+
+
+def tails_phase(smi: str, started: dict) -> dict:
+    """The last port module and the narrow TCN widths on the card (module
+    doc, 14): long_train --tiny in float32 and bf16 here while the
+    children run (the tail study on the card, the float32 tiny run on the
+    CPU), then every child's record checked."""
+    import numpy as np
+
+    from eabnet_tpu_torch.models import build_model
+    from eabnet_tpu_torch.nn.blocks import SqueezedTCNGroup
+    from eabnet_tpu_torch.tools import long_train
+
+    require(sorted(started) == ["tails", "tiny_cpu"],
+            "tails: both children started beside the long run")
+    # the card's runs on the data the CPU run staged with the same
+    # arguments (when it has; else the first stages its own)
+    staged = os.path.join(TAILS_DIR, "tiny_cpu")
+    while not os.path.exists(os.path.join(staged, ".staged")) \
+            and started["tiny_cpu"].poll() is None:
+        time.sleep(0.2)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        work = os.path.join(TAILS_DIR, f"tiny_{dtype}")
+        os.makedirs(work)
+        if os.path.exists(os.path.join(staged, ".staged")):
+            for name in ("speech", "noise", "lists", "train_set", "val",
+                         "settings.json", ".staged"):
+                os.symlink(os.path.abspath(os.path.join(staged, name)),
+                           os.path.join(work, name))
+        runs[dtype] = tiny_run(work, dtype)
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    cpu = child_result("tiny_cpu", started["tiny_cpu"])
+    tails = child_result("tails", started["tails"])
+    cpu_s, tails_s = cpu["seconds"], tails["seconds"]
+
+    # the tiny model's causal IN TCN groups: the TCM-chain launches of one
+    # forward (widths 16 and 12)
+    args = long_train.parse_args(list(TINY_ARGS))
+    model = build_model(long_train.make_config(args, "", "", False).model)
+    groups = [m for m in model.modules()
+              if isinstance(m, SqueezedTCNGroup) and m.chain]
+    widths = sorted({g.tcm_0.in_conv.kernel.shape[0] for g in groups})
+    steps, val = 2, 2
+    forwards = steps + 2 * val  # the train steps and the scored forwards
+    want = {"float32": {
+        "lstm_bf_fwd_train": steps, "lstm_bf_bwd": steps,
+        "tcm_chain_fwd": len(groups) * forwards,
+        "tcm_chain_bwd": len(groups) * steps, "lstm_bf_fwd": 2 * val},
+        "bfloat16": {
+        "lstm_bf_fwd_train_bf16": steps, "lstm_bf_bwd_bf16": steps,
+        "tcm_chain_fwd_bf16": len(groups) * steps,
+        "tcm_chain_bwd_bf16": len(groups) * steps,
+        "tcm_chain_fwd": len(groups) * 2 * val, "lstm_bf_fwd": 2 * val}}
+    for dtype, r in (("float32", f32), ("bfloat16", bf16)):
+        chunks = r["run"]["chunks"]
+        say(f"tails: long_train --tiny --dtype {dtype} on the card: "
+            f"{r['seconds']:.1f} s, chunk to step "
+            f"{[c['step'] for c in chunks]} in "
+            f"{[round(c['seconds'], 2) for c in chunks]} s, losses "
+            f"{[c['losses'] for c in chunks]}, launches by C entry "
+            f"{r['entries']} ({smi})")
+        require([c["step"] for c in chunks] == [steps]
+                and len(chunks[0]["losses"]) == steps
+                and all(np.isfinite(v) for c in chunks for h in c["losses"]
+                        for v in h.values())
+                and r["entries"] == want[dtype],
+                f"tails: long_train --tiny --dtype {dtype} trains {steps} "
+                f"steps on the card with finite losses, its {len(groups)} "
+                f"TCN groups of widths {widths} through the TCM-chain "
+                f"kernels: launches {want[dtype]}")
+    cpu_losses = cpu["run"]["chunks"][0]["losses"]
+    card_losses = f32["run"]["chunks"][0]["losses"]
+    rel = {k: abs(card_losses[0][k] - v) / abs(v)
+           for k, v in cpu_losses[0].items()}
+    say(f"tails: long_train --tiny --dtype float32 --platform cpu (child "
+        f"process, its main {cpu_s:.1f} s): step-1 losses {cpu_losses[0]}, the "
+        f"card's relative differences {rel}")
+    require(max(rel.values()) <= TINY_LOSS_RTOL,
+            f"tails: the card's step-1 losses of long_train --tiny within "
+            f"{TINY_LOSS_RTOL:g} (relative) of the CPU's")
+
+    with open(os.path.join(TAILS_DIR, "TAIL_SENSITIVITY.md")) as f:
+        text = f.read()
+    say("tails: " + "\ntails: ".join(text.splitlines()))
+    with open(TAILS_GOLDEN) as f:
+        golden = json.load(f)
+    bad = check_tails(parse_tails(text), golden, tails_nudges(
+        os.path.join(TAILS_DIR, "render"), EXP_CLN))
+    items = int(TAILS_CUT[TAILS_CUT.index("--items") + 1])
+    want_tails = {"lstm_bf_fwd": len(TAILS_METHODS) * 2 * items}
+    say(f"tails: tools.tail_sensitivity at {' '.join(TAILS_CUT)} in "
+        f"{tails_s:.1f} s (its main) beside the long run and this phase, "
+        f"launches by C entry {tails['entries']} ({smi})")
+    require(not bad and tails["entries"] == want_tails,
+            f"tails: the port tool's 9 + 4 rows at the JAX tool's printed "
+            f"digits ({TAILS_GOLDEN}: means within {EVAL_MEAN_TOL:g}, deltas "
+            f"within {EVAL_MARGIN_TOL:g}), {want_tails} launches"
+            + (f" (outside: {bad})" if bad else ""))
+    return dict(entries={"tiny_f32": f32["entries"],
+                         "tiny_bf16": bf16["entries"],
+                         "tails": tails["entries"]},
+                tiny_s={"float32": f32["seconds"], "bfloat16": bf16["seconds"],
+                        "cpu": cpu_s},
+                tiny_step1_rel=rel, tails_s=tails_s, widths=widths)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     import numpy as np
@@ -4406,6 +4790,20 @@ def main() -> int:
                 f"lstm_bf: L=1,127 runs on {g7['blocks']} of {g7['sms']} SMs "
                 f"(at least 120 of 132), L=2,576 in {g16['waves']} wave(s) "
                 f"(one)")
+        # the four TCM-chain forms at the squeezed widths below 64
+        narrow = narrow_cases()
+        passed = {"fwd": lambda r: r["err"] <= KERNEL_ATOL and r["same"],
+                  "bwd": lambda r: r["ok"],
+                  "fwd_bf16": lambda r: r["ok"] and r["same"],
+                  "bwd_bf16": lambda r: r["ok"]}
+        bad = [f"{k} {f}" for k, v in narrow.items() for f, r in v.items()
+               if not passed[f](r)]
+        require(not bad, "tcm_chain at C = " + ", ".join(
+            str(c[0]) for c in NARROW_GROUPS.values()) + ": every form "
+            "against its plain version by its rule at full width (float32 "
+            f"forward {KERNEL_ATOL:g}, backward the JAX gradient tests' "
+            "tolerances, bf16 the lowp and lowp_train phases' rules), the "
+            f"same bits on a second launch (outside: {bad})")
 
     # serving runs with torch's default flags (cuDNN's TF32 on, matmul's
     # off), as a user's process has them: the Enhancer must turn TF32 off
@@ -4592,10 +4990,23 @@ def main() -> int:
             (EXP_CLN, "float32", "esti"): cln_out["esti"]})
         say(f"freq: phase {time.perf_counter() - t_phase:.1f} s")
 
-    with Phase("longrun"):
-        t_phase = time.perf_counter()
-        longrun = longrun_phase(smi)
-        say(f"longrun: phase {time.perf_counter() - t_phase:.1f} s")
+    started = {}
+    try:
+        with Phase("longrun"):
+            t_phase = time.perf_counter()
+            longrun = longrun_phase(
+                smi, beside=lambda run: started.update(start_tails(run)))
+            say(f"longrun: phase {time.perf_counter() - t_phase:.1f} s")
+
+        with Phase("tails"):
+            t_phase = time.perf_counter()
+            tails = tails_phase(smi, started)
+            say(f"tails: phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     def per_forward(twin, single):
         """Both variants as one forward runs them: 3 twin + 18 single."""
@@ -4622,6 +5033,16 @@ def main() -> int:
                               "geometry", "split_ms") if f in v}
             for k, v in cases.items() if k.startswith(("twin", "single"))}
 
+    def narrow_rows(form):
+        """A form's narrow-width cases: C, (B, T), error and times."""
+        return {k: dict(c=NARROW_GROUPS[k][0], b=NARROW_B_BWD16 if form ==
+                        "bwd_bf16" else NARROW_B, t=NARROW_T, **{
+                            f: v[form][f] for f in (
+                                "err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "tc_bound_ms", "f32_bound_ms",
+                                "split_ms") if f in v[form]})
+                for k, v in narrow.items()}
+
     tcm = per_forward("twin_1", "single_1")
     tcm_step = {k: 3 * bwd["twin_7"][k] + 18 * bwd["single_7"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "tc_bound_ms")}
@@ -4639,12 +5060,13 @@ def main() -> int:
         {"name": "tcm_chain_fwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:175",
-         "max_abs_err": max(res[k]["err"] for k in tcm_keys),
+         "max_abs_err": max([res[k]["err"] for k in tcm_keys]
+                            + [v["fwd"]["err"] for v in narrow.values()]),
          "ms": tcm["ms"], "plain_ms": tcm["plain_ms"],
          "bound_ms": tcm["bound_ms"],
          "bound_by": res["twin_1"]["bound_by"],
          "library_ms": None, "tc_bound_ms": tcm["tc_bound_ms"],
-         "shapes": tcm_shapes(res, 701)},
+         "shapes": tcm_shapes(res, 701), "narrow": narrow_rows("fwd")},
         {"name": "lstm_bf_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/lstm_bf.cu",
          "replaces": "eabnet_tpu/kernels/lstm_bf.py:107",
@@ -4659,7 +5081,8 @@ def main() -> int:
         {"name": "tcm_chain_bwd", "route": "cuda",
          "source": "eabnet_tpu_torch/csrc/tcm_chain.cu",
          "replaces": "eabnet_tpu/kernels/tcm_chain.py:187",
-         "max_abs_err": max(bwd[k]["err"] for k in tcm_keys),
+         "max_abs_err": max([bwd[k]["err"] for k in tcm_keys]
+                            + [v["bwd"]["err"] for v in narrow.values()]),
          "ms": tcm_step["ms"], "plain_ms": tcm_step["plain_ms"],
          "bound_ms": tcm_step["bound_ms"],
          "bound_by": bwd["twin_7"]["bound_by"],
@@ -4668,7 +5091,8 @@ def main() -> int:
                       + 18 * bwd["single_7"]["split_ms"][part]
                       for part in ("walk", "wgrad", "sum")}
          if bwd["twin_7"]["split_ms"] and bwd["single_7"]["split_ms"]
-         else None, "shapes": tcm_shapes(bwd, TRAIN_T)},
+         else None, "shapes": tcm_shapes(bwd, TRAIN_T),
+         "narrow": narrow_rows("bwd")},
     ]}
     # the bf16 serving variants: launches of one bf16 forward of each
     # model (int8w runs the same bf16 kernels), times per forward of one
@@ -4692,10 +5116,12 @@ def main() -> int:
                 ms=low_fwd["ms"], plain_ms=low_fwd["plain_ms"],
                 bound_ms=low_fwd["bound_ms"],
                 bound_by=low["twin_1"]["bound_by"], library_ms=None,
-                f32_bound_ms=low_fwd["f32_bound_ms"]))):
+                f32_bound_ms=low_fwd["f32_bound_ms"],
+                narrow=narrow_rows("fwd_bf16")))):
         record["kernels"].append(dict(
             name=name, route="cuda",
-            max_abs_err=max(low[k]["err"] for k in keys), **row,
+            max_abs_err=max([low[k]["err"] for k in keys] + [
+                r["err"] for r in row.get("narrow", {}).values()]), **row,
             snr_db={k: low[k]["snr"] for k in keys},
             need_db={k: low[k]["need"] for k in keys},
             shapes={k: {f: low[k][f] for f in (
@@ -4746,7 +5172,10 @@ def main() -> int:
         dict(name="tcm_chain_bwd_bf16", route="cuda",
              source="eabnet_tpu_torch/csrc/tcm_chain.cu",
              replaces="eabnet_tpu/kernels/tcm_chain.py:187",
-             max_abs_err=max(lbw[k]["err"] for k in tt),
+             max_abs_err=max([lbw[k]["err"] for k in tt]
+                             + [v["bwd_bf16"]["err"] for v in
+                                narrow.values()]),
+             narrow=narrow_rows("bwd_bf16"),
              ms=step16["ms"], plain_ms=step16["plain_ms"],
              bound_ms=step16["bound_ms"],
              bound_by=lbw["twin_7"]["bound_by"],
@@ -4776,6 +5205,7 @@ def main() -> int:
     record["ddp"] = {k: v for k, v in ddp.items() if k != "entries"}
     record["freq"] = {k: v for k, v in sharded.items() if k != "entries"}
     record["longrun"] = {k: v for k, v in longrun.items() if k != "entries"}
+    record["tails"] = {k: v for k, v in tails.items() if k != "entries"}
     record["heads"] = dict(
         walls=heads["walls"], snr=heads["served"]["snr"],
         stream_err=heads["streamed"]["err"],
@@ -4803,7 +5233,7 @@ def main() -> int:
              "heads": heads["served"]["entries"],
              "heads_stream": heads["streamed"]["entries"],
              "l3das": heads["trained"]["entries"],
-             "longrun": longrun["entries"]}
+             "longrun": longrun["entries"], **tails["entries"]}
     for k in record["kernels"]:
         entries, main_path = ROW_ENTRIES[k["name"]]
         k["launches_by_path"] = {p: sum(e.get(n, 0) for n in entries)

@@ -4,6 +4,8 @@
 // Replaces the TPU kernel eabnet_tpu/kernels/tcm_chain.py::_fwd_kernel
 // (math in _tcm_fwd_math). On the trunk x (B, T, D), TCM j computes
 //   h  = x @ wi[j]                                   (D -> C = 64)
+// (a narrower chain comes zero-padded to C = 64 by its wrapper,
+// kernels/tcm_chain.py::pad_weights: a zero channel stays 0 throughout)
 //   n  = IN_T(PReLU(h)) per branch                   (stats over all of T)
 //   c  = sum_i shift(n, (K-1-i) dil_j) @ w[j, i]     (causal dilated conv)
 //   g  = cL * sigmoid(cR)  (twin, EaBNet)  or  cL    (single, GaGNet)
@@ -1585,7 +1587,8 @@ extern "C" long long eabnet_tcm_chain_workspace(int B, int T) {
 
 // x (B, T, D) -> y (B, T, D) through P TCMs; weights as in Args; dils holds
 // P host ints. All float32, contiguous, on the current device. Returns a
-// cudaError_t. Requires C = 64, D % 4 == 0, D <= 256, K <= 8, P <= 16.
+// cudaError_t. Requires C = 64 (narrower chains arrive zero-padded to it),
+// D % 4 == 0, D <= 256, K <= 8, P <= 16.
 extern "C" int eabnet_tcm_chain_fwd(const float* x, const float* wi,
                                     const float* wl, const float* wr,
                                     const float* wo, const float* al,

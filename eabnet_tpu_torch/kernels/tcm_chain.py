@@ -16,6 +16,15 @@ Weights come stacked over the group's p TCMs, as
 alphas, gammas, betas (p, 3, C))`` with conv taps as (tap, in, out) and
 the (p, 3, C) rows ``[branch L, branch R (L again when single), out]``.
 
+The CUDA kernels are built for a squeezed width of C = 64. A chain of any
+C from 1 to 64 runs through them with its weights zero-padded to 64
+channels (``pad_weights``): a padded channel is exactly 0 through the
+whole chain (the in-projection gives 0, PReLU(0) = 0, the instance norm
+of a zero channel with scale and bias 0 gives 0, the convs' and the
+out-projection's padded rows are 0), so the output is the narrow chain's
+and the padded entries of every gradient are 0; the backward returns the
+gradients cropped to C. At C = 64 nothing is padded or copied.
+
 bfloat16 follows the Pallas kernels' semantics (``wdt`` there): x and
 every weight come in bf16; each product is the float32 product of bf16
 operands with a float32 sum (its activation operand rounded to bf16 where
@@ -321,12 +330,36 @@ def _check(x, weights, dilations):
         raise ValueError("tcm_chain: empty batch, sequence or chain")
 
 
+def pad_weights(weights: Tuple[torch.Tensor, ...]
+                ) -> Tuple[torch.Tensor, ...]:
+    """Stacked weights of squeezed width C <= 64 at the kernels' C = 64:
+    zero columns of wi, zero in and out channels of wl and wr, zero rows
+    of wo, zero slopes, scales and biases. The same tuple at C = 64."""
+    n = C_KERNEL - weights[0].shape[-1]
+    if n == 0:
+        return weights
+    wi, wl, wr, wo, *rows = weights
+    return (F.pad(wi, (0, n)), F.pad(wl, (0, n, 0, n)),
+            F.pad(wr, (0, n, 0, n)), F.pad(wo, (0, 0, 0, n)),
+            *(F.pad(v, (0, n)) for v in rows))
+
+
+def crop_grads(grads: Tuple[torch.Tensor, ...],
+               weights: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``pad_weights(weights)`` cut back to the shapes of
+    ``weights`` (the same tensors where nothing was padded)."""
+    return tuple(
+        g if g.shape == w.shape else
+        g[tuple(slice(0, n) for n in w.shape)].contiguous()
+        for g, w in zip(grads, weights))
+
+
 def _kernel_check(x, weights, dilations):
     b, t, d = x.shape
     k, c, p = weights[1].shape[1], weights[0].shape[-1], len(dilations)
-    if c != C_KERNEL or d > 256 or d % 4 or k > 8 or p > 16:
+    if c > C_KERNEL or d > 256 or d % 4 or k > 8 or p > 16:
         raise ValueError(
-            f"tcm_chain kernel takes C=64, D<=256 (multiple of 4), K<=8, "
+            f"tcm_chain kernel takes C<=64, D<=256 (multiple of 4), K<=8, "
             f"p<=16; got C={c}, D={d}, K={k}, p={p}")
     if not all(w.is_contiguous() and w.data_ptr() % 16 == 0
                for w in (x,) + tuple(weights)):
@@ -362,6 +395,7 @@ def _launch_fwd(x, weights, dilations, twin, trunk=False):
     of the float32 trunk left in the workspace: the trunk input of the
     chain's last TCM (that TCM writes only y)."""
     b, t, d, k, p = _kernel_check(x, weights, dilations)
+    weights = pad_weights(weights)
     lib = load_library()
     y = torch.empty_like(x)
     lowp = x.dtype == torch.bfloat16
@@ -418,9 +452,10 @@ def _launch_bwd(x, dy, weights, dilations, twin, activations=False):
     T, C), "dy": the cotangents at the outputs of TCMs 0..p-2 (p-1, B, T,
     D), "no": the normalised gate outputs (p, B, T, C)} (copies of the
     kernel's workspace, laid out as ``csrc/tcm_chain.cu`` documents in
-    ``eabnet_tcm_chain_bwd``)."""
+    ``eabnet_tcm_chain_bwd``; C wide, the chain's own width)."""
     dy = dy.contiguous()
     b, t, d, k, p = _kernel_check(x, weights, dilations)
+    narrow, weights = weights, pad_weights(weights)
     if dy.dtype != x.dtype or dy.shape != x.shape:
         raise TypeError("tcm_chain backward: dy must have x's shape and "
                         "dtype")
@@ -446,11 +481,11 @@ def _launch_bwd(x, dy, weights, dilations, twin, activations=False):
     lib.check(err, "tcm_chain backward kernel launch")
     tcm_chain.bwd_launches += 1
     _count(entry)
-    dw = tuple(g.view(w.shape) for g, w in zip(
-        torch.split(grads, [w.numel() for w in weights]), weights))
+    dw = crop_grads(tuple(g.view(w.shape) for g, w in zip(
+        torch.split(grads, [w.numel() for w in weights]), weights)), narrow)
     if not activations:
         return dx, dw
-    c = weights[0].shape[-1]
+    c, cn = weights[0].shape[-1], narrow[0].shape[-1]
     btc, btd = b * t * c, b * t * d
     offs = (ctypes.c_longlong * 3)()
     lib.check(lib.lib.eabnet_tcm_chain_bwd_offsets(
@@ -459,9 +494,9 @@ def _launch_bwd(x, dy, weights, dilations, twin, activations=False):
     xs = work[o:o + (p - 1) * btd].view(p - 1, b, t, d).clone()
     o += (p - 1) * btd
     hs, cl, cr = (work[o + i * p * btc:o + (i + 1) * p * btc]
-                  .view(p, b, t, c).clone() for i in range(3))
+                  .view(p, b, t, c)[..., :cn].clone() for i in range(3))
     dys = work[offs[1]:offs[1] + (p - 1) * btd].view(p - 1, b, t, d).clone()
-    nos = work[offs[2]:offs[2] + p * btc].view(p, b, t, c).clone()
+    nos = work[offs[2]:offs[2] + p * btc].view(p, b, t, c)[..., :cn].clone()
     return dx, dw, {"x": xs, "h": hs, "c": (cl, cr), "dy": dys, "no": nos}
 
 

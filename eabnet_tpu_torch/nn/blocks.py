@@ -25,13 +25,24 @@ from eabnet_tpu_torch.nn.stepping import current
 from eabnet_tpu_torch.parallel import freq
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default kernel initialiser, ``lecun_normal`` (variance
+    scaling 1 over ``fan_in``, truncated normal), drawn in place: a normal
+    cut at two deviations, its deviation sqrt(1 / fan_in) / 0.8796... so
+    that the cut draw has variance 1 / fan_in. ``fan_in`` is flax's: the
+    receptive field times the input features."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+
+
 class Dense(nn.Module):
     """``x @ kernel.T + bias`` over the last axis; kernel (out, in)."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(out_dim, in_dim))
-        nn.init.kaiming_uniform_(self.kernel, a=5 ** 0.5)
+        lecun_normal_(self.kernel, in_dim)
         self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +60,7 @@ class Conv2d(nn.Module):
         super().__init__()
         self.stride = tuple(stride)
         self.kernel = nn.Parameter(torch.empty(cout, cin, *kernel))
-        nn.init.kaiming_uniform_(self.kernel, a=5 ** 0.5)
+        lecun_normal_(self.kernel, cin * kernel[0] * kernel[1])
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +86,9 @@ class ConvTranspose2d(nn.Module):
         super().__init__()
         self.stride = tuple(stride)
         self.kernel = nn.Parameter(torch.empty(cin, cout, *kernel))
-        nn.init.kaiming_uniform_(self.kernel, a=5 ** 0.5)
+        # flax's transposed-conv kernel is (kt, kf, I, O): its fan_in
+        # counts the input channels, not PyTorch's output ones
+        lecun_normal_(self.kernel, cin * kernel[0] * kernel[1])
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +120,7 @@ class Conv1d(nn.Module):
         self.dilation = dilation
         self.causal = causal
         self.kernel = nn.Parameter(torch.empty(c, c, k))
-        nn.init.kaiming_uniform_(self.kernel, a=5 ** 0.5)
+        lecun_normal_(self.kernel, c * k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         full = (self.kernel.shape[2] - 1) * self.dilation

@@ -24,9 +24,9 @@ starts a fresh process that resumes at the newest checkpoint (README).
 Every flag and default is the JAX tool's, except ``--workdir`` (default
 ``longrun`` in the working directory) and ``--platform`` (``default`` is
 the card, ``cpu`` the CPU). ``--bf-impl`` is written into the config and
-not acted on: the tensor's device picks the kernel. ``--tiny`` is a CPU
-wiring mode: its TCN width 16 is not the TCM-chain kernel's 64, so on the
-card the kernel's wrapper raises.
+not acted on: the tensor's device picks the kernel. ``--tiny`` is the
+reduced model of wiring dry runs (TCN widths 16 and 12, which the
+TCM-chain kernels take zero-padded to their 64).
 """
 
 from __future__ import annotations
@@ -41,7 +41,9 @@ import time
 
 # What the last ``main`` call did, also when it ended by recycling (exit
 # 75): ``staged_s``, the staging seconds; ``chunks``, one record per chunk
-# trained ({"step", "frozen", "seconds", "it_per_sec", "score_s"}).
+# trained ({"step", "frozen", "seconds", "it_per_sec", "score_s",
+# "losses"}: ``losses`` holds the chunk's steps' {"eabnet", "postnet",
+# "final"} losses, each before its step's update).
 RUN: dict = {"staged_s": None, "chunks": []}
 EXIT_RECYCLE = 75  # EX_TEMPFAIL
 
@@ -180,9 +182,7 @@ def parse_args(argv=None):
                     "run frame-by-frame (IN cannot stream by "
                     "construction, reference EaBNet.py:46-48)")
     ap.add_argument("--tiny", action="store_true",
-                    help="reduced model (wiring dry runs; CPU only: its "
-                    "TCN width is not the TCM-chain kernel's 64, so with "
-                    "--platform default the kernel wrapper raises)")
+                    help="reduced model (wiring dry-runs)")
     add_platform(ap)
     return ap.parse_args(argv)
 
@@ -298,7 +298,7 @@ def main(argv=None) -> None:
         frozen = args.freeze_after is not None and done >= args.freeze_after
         cfg = make_config(args, root, settings_path, frozen)
         t1 = time.time()
-        train(cfg, max_steps=target, device=device)
+        hist = train(cfg, max_steps=target, device=device)
         dt = time.time() - t1
         done = target
         sps = args.chunk / max(dt, 1e-9)
@@ -314,9 +314,11 @@ def main(argv=None) -> None:
             with open(curves, "a") as f:
                 f.write(json.dumps(row) + "\n")
             print(f"[long_train] {row}", flush=True)
-        RUN["chunks"].append(dict(step=done, frozen=frozen, seconds=dt,
-                                  it_per_sec=sps,
-                                  score_s=time.time() - t2))
+        RUN["chunks"].append(dict(
+            step=done, frozen=frozen, seconds=dt, it_per_sec=sps,
+            score_s=time.time() - t2,
+            losses=[{k: h[k] for k in ("eabnet", "postnet", "final")}
+                    for h in hist]))
         prune_checkpoints(cfg.train.checkpoint_dir,
                           keep_every=10 * args.chunk)
     print("[long_train] done", flush=True)

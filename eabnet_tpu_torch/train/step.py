@@ -84,9 +84,10 @@ def adam_init(model: nn.Module) -> AdamState:
 
 def create_train_state(cfg: ExperimentConfig, device="cuda",
                        seed: Optional[int] = None) -> TrainState:
-    """A freshly initialised model on ``device`` (PyTorch's initialisers
-    under ``torch.manual_seed(seed)``, default ``cfg.train.seed``, without
-    touching the caller's random state) and a fresh optimizer."""
+    """A freshly initialised model on ``device`` (the JAX package's
+    initialisers drawn under ``torch.manual_seed(seed)``, default
+    ``cfg.train.seed``, without touching the caller's random state) and a
+    fresh optimizer."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed if seed is None else seed)
         model = build_model(cfg.model)

@@ -1,9 +1,10 @@
 """The port's end-to-end quality gate, the counterpart of
 ``tests/test_e2e_quality.py``: the same gate settings, corpus, reduced
-model, 120 steps and margins, run through the port on the CPU (the
-reduced model's TCN width 24 is not the TCM-chain kernel's 64, so it
-cannot run on the card). Slow-marked like the JAX gate; run with
---run-slow.
+model, 120 steps and margins, run through the port on the CPU and, with
+the ``gpu`` marker, on the card (its TCN widths 24 and 16 run through the
+TCM-chain kernels zero-padded to their 64). Slow-marked like the JAX
+gate; run with --run-slow here, and on the card with
+``python -m pytest -m gpu --noconftest tests/test_torch_e2e_quality.py``.
 
 The corpus and settings come from the port's
 ``eabnet_tpu_torch.tools.e2e_demo``: a formant-synth corpus (24 speech, 8
@@ -11,9 +12,9 @@ noise files of 2 s), the seeded 20:1 split, a frozen val set of 2 items,
 online room-acoustics synthesis in 2 spawned workers, batch 4. The
 trained bare EaBNet (``esti0``) must beat the noisy reference mic by the
 JAX gate's margins: SI-SDR +4.5 dB, PESQ +0.20, STOI +0.02, ESTOI +0.03.
-The port's initial weights are its own (seeded PyTorch initialisers), not
-the JAX package's, so its numbers differ from the JAX gate's; ROADMAP.md
-§3 records what that does to this gate.
+The port's initial weights are drawn from the JAX package's initialisers
+with PyTorch's generator, so they are not the JAX gate's numbers, and
+neither are its results.
 """
 
 import copy
@@ -35,6 +36,26 @@ GATE_SETTINGS["noise"]["SNR"] = [-10, -5]
 
 @pytest.mark.slow
 def test_training_improves_si_sdr_over_noisy(tmp_path):
+    gate(str(tmp_path), "cpu")
+
+
+@pytest.fixture
+def cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+
+
+@pytest.mark.slow
+@pytest.mark.gpu
+def test_training_improves_si_sdr_over_noisy_on_card(cuda, tmp_path):
+    gate(str(tmp_path), "cuda")
+
+
+def gate(root, device):
+    """Stage, train 120 steps on ``device``, score esti0 against the noisy
+    reference mic at the JAX gate's margins."""
     from eabnet_tpu_torch.checkpoint import latest_checkpoint, load_params
     from eabnet_tpu_torch.cli.datagen import main as datagen_main
     from eabnet_tpu_torch.cli.split import main as split_main
@@ -46,7 +67,6 @@ def test_training_improves_si_sdr_over_noisy(tmp_path):
     from eabnet_tpu_torch.inference import Enhancer
     from eabnet_tpu_torch.train.trainer import train
 
-    root = str(tmp_path)
     sp_dir, no_dir = make_corpus(root, n_speech=24, n_noise=8, seconds=2.0)
     settings_path = os.path.join(root, "settings.json")
     with open(settings_path, "w") as f:
@@ -83,14 +103,14 @@ def test_training_improves_si_sdr_over_noisy(tmp_path):
             exp_root=root, fixed_seed=True,
         ),
     )
-    train(cfg, max_steps=120, device="cpu")
+    train(cfg, max_steps=120, device=device)
 
     ckpt = latest_checkpoint(cfg.train.checkpoint_dir)
     assert ckpt is not None and ckpt.endswith("120.ckpt")
     params = load_params(ckpt)
     val = OfflineMcseDataset(os.path.join(root, "val"))
     acc_model, _ = evaluate_dataset(
-        Enhancer(cfg, params, output="esti0", device="cpu"), val_items(val),
+        Enhancer(cfg, params, output="esti0", device=device), val_items(val),
         sr=16000)
     acc_noisy, _ = evaluate_dataset(lambda n: n[0], val_items(val),
                                     sr=16000)
@@ -98,7 +118,7 @@ def test_training_improves_si_sdr_over_noisy(tmp_path):
     def m(acc, key):
         return acc.mean_std(key)[0]
 
-    print("gate means (noisy -> esti0): " + ", ".join(
+    print(f"gate means on {device} (noisy -> esti0): " + ", ".join(
         f"{k} {m(acc_noisy, k):.4f} -> {m(acc_model, k):.4f}"
         for k in ("si_sdr", "pesq", "stoi", "estoi")))
     # the JAX gate's margins: energy AND intelligibility AND perceptual
@@ -113,6 +133,6 @@ def test_training_improves_si_sdr_over_noisy(tmp_path):
         m(acc_model, "estoi"), m(acc_noisy, "estoi"))
 
     # the composed (postnet) output, for plumbing: finite audio
-    composed = Enhancer(cfg, params, output="esti", device="cpu")
+    composed = Enhancer(cfg, params, output="esti", device=device)
     noisy0, _ = val[0]
     assert np.isfinite(composed(np.atleast_2d(noisy0))).all()

@@ -12,7 +12,12 @@ the same with IN, a plain-UNet cLN-ref config with the miso topology, and
 a U²Net IN config with the cnn head; every weight seeded (1-D leaves
 moved off their init). 1x3 splits 161 bins as 54 + 54 + 53 and
 replicates widths 9 and 4; 2x2 pads 3 items to 4. The tolerance is the
-JAX test's (tests/test_inference_mesh.py: 2e-5).
+JAX test's (tests/test_inference_mesh.py: 2e-5). The random models are
+drawn with PyTorch's default kernel initialiser (tests/_kaiming_init.py),
+as these tests were written; the cases ``in`` and ``cnn`` drawn with the
+port's own initialisers, the JAX package's, whose outputs are larger, are
+held against the one-process Enhancer run in float64 at 2e-5 times
+max(1, max |output|) (tests/_float64_port.py).
 """
 
 import os
@@ -22,6 +27,9 @@ import threading
 
 import numpy as np
 import pytest
+
+from _float64_port import enhance64, scaled_error
+from _kaiming_init import kaiming_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-5  # tests/test_inference_mesh.py:103
@@ -39,6 +47,7 @@ CONV_WIDTHS = ((161, 5, False), (79, 3, False), (39, 3, False),
                (19, 3, False), (9, 3, False), (4, 3, True), (9, 3, True),
                (19, 3, True), (39, 3, True), (79, 5, True))
 RANK_TIMEOUT_S = 300
+SCALE_CASES = ("in", "cnn")  # also drawn with the port's initialisers
 
 
 def cfg_dict(case: str) -> dict:
@@ -58,17 +67,19 @@ def port_cfg(case: str):
     return ExperimentConfig.from_dict(cfg_dict(case))
 
 
-def params(case: str) -> dict:
-    """The case's flax param tree (numpy): the port's init under a fixed
-    seed, its 1-D leaves (biases, norm scales, PReLU slopes) moved by
-    seeded noise."""
+def params(case: str, init: str = "kaiming") -> dict:
+    """The case's flax param tree (numpy): the model drawn under a fixed
+    seed (``kaiming_model``, or with ``init="jax"`` the port's own
+    initialisers, the JAX package's), its 1-D leaves (biases, norm scales,
+    PReLU slopes) moved by seeded noise."""
     import torch
 
     from eabnet_tpu_torch.models import build_model
     from eabnet_tpu_torch.weights import to_jax_params
 
     torch.manual_seed(17)
-    model = build_model(port_cfg(case).model)
+    model = (kaiming_model if init == "kaiming" else build_model)(
+        port_cfg(case).model)
     rng = np.random.default_rng(17)
     with torch.no_grad():
         for p in model.parameters():
@@ -143,6 +154,11 @@ def _rank(mesh_name: str, trees: dict) -> dict:
             if stage == "esti":
                 res["counts"][case] = {k: dict(v)
                                        for k, v in freq.counts.items()}
+    for case in SCALE_CASES:
+        key = f"{case} jax-init"
+        res["out"][key] = Enhancer(port_cfg(case), trees[key], mesh=mesh,
+                                   shard_freq=True,
+                                   device="cpu").enhance_batch(x)
     if mesh_name == "1x2":
         for case in ("cln", "in"):
             for dtype in LOWP:
@@ -240,6 +256,8 @@ def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("freq_shard"))
     try:
         trees = {case: params(case) for case in CASES}
+        trees.update({f"{case} jax-init": params(case, "jax")
+                      for case in SCALE_CASES})
         exp = os.path.join(root, "exp")
         os.makedirs(exp)
         port_cfg("cln").save(os.path.join(exp, "config.json"))
@@ -264,6 +282,9 @@ def runs(tmp_path_factory):
                             enh.output = stage
                             one[name, case, stage, mode] = \
                                 enh.enhance_batch(wavs(name))
+            ref64 = {(name, case): enhance64(
+                port_cfg(case), trees[f"{case} jax-init"], wavs(name))
+                for name in MESHES for case in SCALE_CASES}
         finally:
             for t in threads:
                 t.join(timeout=2 * RANK_TIMEOUT_S)
@@ -273,7 +294,7 @@ def runs(tmp_path_factory):
             if "error" in d:
                 raise d["error"]
         yield dict(ranks=ranks, jax=jax_out, one=one, cli=cli, root=root,
-                   trees=trees)
+                   trees=trees, ref64=ref64)
     finally:
         torch.set_num_threads(n_threads)
 
@@ -310,6 +331,18 @@ def test_sharded_matches_one_process(runs, mesh, case):
         assert err <= ATOL, (mesh, case, stage, err)
         assert all(max_err(r["out"][key], ranks[0]["out"][key]) == 0
                    for r in ranks[1:])
+
+
+@pytest.mark.parametrize("case", SCALE_CASES)
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_at_the_jax_init_scale(runs, mesh, case):
+    """The model drawn with the port's initialisers (the JAX package's):
+    every rank's sharded esti within the JAX test's 2e-5 times max(1, max
+    |output|) of the one-process Enhancer run in float64."""
+    ref = runs["ref64"][mesh, case]
+    for r, rank in enumerate(runs["ranks"][mesh]):
+        err, limit = scaled_error(rank["out"][f"{case} jax-init"], ref)
+        assert err <= limit, (mesh, case, r, err, limit)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -23,10 +23,16 @@ from eabnet_tpu_torch.kernels.tcm_chain import (bf16_trunks, tcm_chain,
                                                 tcm_chain_reference)
 from eabnet_tpu_torch.nn.blocks import SqueezedTCNGroup
 
+from _kaiming_init import kaiming_init
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-5
 CASES = [(True, 5, (1, 2, 4, 8, 16, 32)), (False, 3, (1, 2, 5, 9))]
 IDS = ["twin", "single"]
+# the squeezed widths below the kernels' 64 that the repo's configs run
+# (long_train --tiny: 16 and 12; the quality gate's model: 24 and 16),
+# zero-padded to 64 by the wrapper
+NARROW = [12, 16, 24]
 
 
 @pytest.fixture
@@ -38,10 +44,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_group(twin, kd1, dils, device, seed=0):
-    """A port TCN group with seeded weights, slopes, scales and biases."""
+def random_group(twin, kd1, dils, device, seed=0, c=64):
+    """A port TCN group of width c with seeded weights (PyTorch's default
+    kernel draw, the scale these tests were written at), slopes, scales
+    and biases."""
     torch.manual_seed(seed)
-    group = SqueezedTCNGroup(kd1, 64, 256, dils, twin_gate=twin)
+    with kaiming_init():
+        group = SqueezedTCNGroup(kd1, c, 256, dils, twin_gate=twin)
     with torch.no_grad():
         for name, p in group.named_parameters():
             if name.endswith("alpha"):
@@ -115,7 +124,20 @@ TCM_BWD_SHAPES = [(2, 33), (1, 1), (3, 70), (8, 601), (16, 601), (2, 17),
 @pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
 @pytest.mark.parametrize("b,t", TCM_FWD_SHAPES)
 def test_tcm_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
-    group = random_group(twin, kd1, dils, cuda, seed=b * t)
+    check_tcm_fwd(cuda, twin, kd1, dils, b, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
+@pytest.mark.parametrize("b,t", [(8, 601), (2, 17)])
+@pytest.mark.parametrize("c", NARROW)
+def test_tcm_kernel_matches_plain_at_narrow_width_on_card(cuda, c, twin, kd1,
+                                                          dils, b, t):
+    check_tcm_fwd(cuda, twin, kd1, dils, b, t, c)
+
+
+def check_tcm_fwd(cuda, twin, kd1, dils, b, t, c=64):
+    group = random_group(twin, kd1, dils, cuda, seed=b * t, c=c)
     x = torch.randn(b, t, 256, generator=torch.Generator(
         device=cuda).manual_seed(b + t), device=cuda)
     before = tcm_chain.launches
@@ -135,8 +157,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     w = torch.randn(32, 128, device=cuda)
     with torch.no_grad(), pytest.raises(ValueError):
         double_lstm(x, w, w, w, torch.randn(128, device=cuda))
-    group = SqueezedTCNGroup(3, 32, 256, (1, 2), twin_gate=False).to(cuda)
-    with torch.no_grad(), pytest.raises(ValueError):  # C = 32
+    group = SqueezedTCNGroup(3, 72, 256, (1, 2), twin_gate=False).to(cuda)
+    with torch.no_grad(), pytest.raises(ValueError):  # C = 72 > 64
         tcm_chain(torch.randn(1, 5, 256, device=cuda),
                   group.stacked_weights(), (1, 2), False)
 
@@ -190,11 +212,12 @@ def test_streaming_on_card_matches_offline(cuda):
     from eabnet_tpu_torch.streaming import StreamingComposed
 
     torch.manual_seed(0)
-    model = EaBNetWithPostNet(ComposedConfig(
-        eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1,
-                            norm_type="cLN"),
-        gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2),
-                            norm_type="cLN"))).to(cuda).eval()
+    with kaiming_init():  # the weights this test was written with
+        model = EaBNetWithPostNet(ComposedConfig(
+            eabnet=EaBNetConfig(c=8, M=3, embed_dim=8, cd1=8, p=2, q=1,
+                                norm_type="cLN"),
+            gagnet=GaGNetConfig(c=8, cd1=8, p=1, q=1, dilas=(1, 2),
+                                norm_type="cLN"))).to(cuda).eval()
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn((2, 12, 161, 3, 2), generator=g, device=cuda) * 0.3
     with torch.no_grad():
@@ -292,9 +315,25 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda, t, l):
 @pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
 @pytest.mark.parametrize("b,t", TCM_BWD_SHAPES)
 def test_tcm_bwd_kernel_matches_plain_on_card(cuda, twin, kd1, dils, b, t):
+    check_tcm_bwd(cuda, twin, kd1, dils, b, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twin,kd1,dils", CASES, ids=IDS)
+@pytest.mark.parametrize("b,t", [(8, 601), (2, 33)])
+@pytest.mark.parametrize("c", NARROW)
+def test_tcm_bwd_kernel_matches_plain_at_narrow_width_on_card(
+        cuda, c, twin, kd1, dils, b, t):
+    """The backward at width c: the gradients come back cut to c, the
+    padded channels' entries are dropped (tests/test_torch_widths.py shows
+    them 0 in the plain version)."""
+    check_tcm_bwd(cuda, twin, kd1, dils, b, t, c)
+
+
+def check_tcm_bwd(cuda, twin, kd1, dils, b, t, c=64):
     from eabnet_tpu_torch.kernels import tcm_chain as K
 
-    group = random_group(twin, kd1, dils, cuda, seed=b * t + 1)
+    group = random_group(twin, kd1, dils, cuda, seed=b * t + 1, c=c)
     g = torch.Generator(device=cuda).manual_seed(b + t)
     x = torch.randn(b, t, 256, generator=g, device=cuda)
     dy = torch.randn(b, t, 256, generator=g, device=cuda)
@@ -479,8 +518,29 @@ def test_lstm_bf16_kernel_matches_plain_on_card(cuda, release_model, l):
 @pytest.mark.parametrize("which", ["twin", "single"])
 def test_tcm_bf16_kernel_matches_plain_on_card(cuda, release_model, which,
                                                b):
-    group = (release_model.eabnet.stcn_0 if which == "twin"
-             else release_model.postnet.gag_0.glance.tcn_0)
+    check_tcm_bf16_fwd(cuda, release_group(release_model, which), b)
+
+
+def release_group(model, which):
+    return (model.eabnet.stcn_0 if which == "twin"
+            else model.postnet.gag_0.glance.tcn_0)
+
+
+def narrow_group(cuda, which, c, seed):
+    """A seeded group of width c in the release groups' forms."""
+    twin, kd1, dils = CASES[IDS.index(which)]
+    return random_group(twin, kd1, dils, cuda, seed=seed, c=c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["twin", "single"])
+@pytest.mark.parametrize("c", NARROW)
+def test_tcm_bf16_kernel_matches_plain_at_narrow_width_on_card(cuda, c,
+                                                                which):
+    check_tcm_bf16_fwd(cuda, narrow_group(cuda, which, c, c), 7)
+
+
+def check_tcm_bf16_fwd(cuda, group, b):
     dils, twin = group.dilations, group.twin_gate
     g = torch.Generator(device=cuda).manual_seed(b)
     x = torch.randn((b, 701, 256), generator=g, device=cuda)
@@ -509,8 +569,19 @@ def test_tcm_bf16_kernel_each_tcm_matches_plain_on_card(cuda, release_model,
     input (its trunk after TCM j - 1), its float32 output against the plain
     version's on the same input: R + 20 dB. A trunk rounded to bf16
     between the TCMs, or an activation operand left unrounded, fails it."""
-    group = (release_model.eabnet.stcn_0 if which == "twin"
-             else release_model.postnet.gag_0.glance.tcn_0)
+    check_tcm_bf16_each(cuda, release_group(release_model, which), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["twin", "single"])
+@pytest.mark.parametrize("c", NARROW)
+def test_tcm_bf16_kernel_each_tcm_at_narrow_width_on_card(cuda, c, which):
+    """The bf16 kernel's float32 trunk workspace (``bf16_trunks``) still
+    reads right at width c: each TCM at R + 20 dB."""
+    check_tcm_bf16_each(cuda, narrow_group(cuda, which, c, 100 + c), 7)
+
+
+def check_tcm_bf16_each(cuda, group, b):
     dils, twin = group.dilations, group.twin_gate
     g = torch.Generator(device=cuda).manual_seed(10 + b)
     x16 = torch.randn((b, 701, 256), generator=g, device=cuda).to(BF16)
@@ -613,10 +684,20 @@ def test_lstm_bf16_train_kernels_match_plain_on_card(cuda, release_model, l):
 @pytest.mark.parametrize("which", ["twin", "single"])
 def test_tcm_bf16_bwd_kernel_matches_plain_on_card(cuda, release_model, which,
                                                    b):
+    check_tcm_bf16_bwd(cuda, release_group(release_model, which), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["twin", "single"])
+@pytest.mark.parametrize("c", NARROW)
+def test_tcm_bf16_bwd_kernel_matches_plain_at_narrow_width_on_card(cuda, c,
+                                                                    which):
+    check_tcm_bf16_bwd(cuda, narrow_group(cuda, which, c, 200 + c), 2)
+
+
+def check_tcm_bf16_bwd(cuda, group, b):
     from eabnet_tpu_torch.kernels import tcm_chain as K
 
-    group = (release_model.eabnet.stcn_0 if which == "twin"
-             else release_model.postnet.gag_0.glance.tcn_0)
     dils, twin = group.dilations, group.twin_gate
     g = torch.Generator(device=cuda).manual_seed(200 + b)
     x16 = torch.randn((b, 601, 256), generator=g, device=cuda).to(BF16)
@@ -763,14 +844,55 @@ def test_e2e_demo_on_card(cuda, tmp_path):
 
 
 @pytest.mark.gpu
-def test_long_train_tiny_raises_on_card(cuda, tmp_path):
-    """--tiny is a CPU wiring mode: on the card its TCN width 16 reaches
-    the TCM-chain kernel's wrapper, which raises (no fallback)."""
+def test_long_train_tiny_on_card(cuda, tmp_path):
+    """--tiny --dtype float32 trains 2 steps on the card, its TCN widths 16
+    and 12 through the TCM-chain kernels (zero-padded to 64): each step-1
+    loss within 1e-5 (relative) of the same command with --platform cpu,
+    under cuDNN's deterministic algorithms."""
     from eabnet_tpu_torch.tools import long_train
 
-    with pytest.raises(ValueError, match="tcm_chain kernel takes C=64"):
-        long_train.main([
-            "--workdir", str(tmp_path), "--tiny", "--max-steps", "2",
-            "--chunk", "2", "--train-items", "2", "--val-items", "1",
-            "--corpus-speech", "21", "--corpus-noise", "2", "--seconds", "1",
-            "--batch", "2", "--workers", "1"])
+    args = ["--tiny", "--dtype", "float32", "--max-steps", "2", "--chunk",
+            "2", "--train-items", "2", "--val-items", "1", "--corpus-speech",
+            "21", "--corpus-noise", "2", "--seconds", "1", "--batch", "2",
+            "--workers", "1"]
+    losses = {}
+    b0 = tcm_chain.bwd_launches
+    for platform in ("default", "cpu"):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            long_train.main(["--workdir", str(tmp_path / platform),
+                             "--platform", platform] + args)
+        chunks = long_train.RUN["chunks"]
+        assert [c["step"] for c in chunks] == [2]
+        losses[platform] = chunks[0]["losses"]
+        if platform == "default":
+            assert tcm_chain.bwd_launches > b0
+    assert len(losses["cpu"]) == len(losses["default"]) == 2
+    for k, v in losses["cpu"][0].items():
+        assert losses["default"][0][k] == pytest.approx(v, rel=1e-5), k
+
+
+@pytest.mark.gpu
+def test_tail_sensitivity_on_card(cuda, tmp_path):
+    """tools.tail_sensitivity at chip_smoke's cut on the card: the table's
+    9 + 4 rows against the JAX tool's golden by chip_smoke's rule."""
+    import json
+    import sys
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from eabnet_tpu_torch.tools import tail_sensitivity
+    from eabnet_tpu_torch.tools.e2e_demo import SETTINGS
+    from eabnet_tpu_torch.tools.long_train import stage_data
+
+    work = str(tmp_path / "work")
+    stage_data(work, *chip_smoke.TAILS_STAGING, SETTINGS, render_train=False)
+    out = str(tmp_path / "TAILS.md")
+    tail_sensitivity.main(["--workdir", work, "--out", out, "--render-root",
+                           str(tmp_path / "render"), *chip_smoke.TAILS_CUT])
+    with open(os.path.join(ROOT, chip_smoke.TAILS_GOLDEN)) as f:
+        golden = json.load(f)
+    with open(out) as f:
+        ours = chip_smoke.parse_tails(f.read())
+    assert not chip_smoke.check_tails(ours, golden, None)

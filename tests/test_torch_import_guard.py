@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
             "eabnet_tpu_torch.tools.long_train",
             "eabnet_tpu_torch.tools.release_report",
             "eabnet_tpu_torch.tools.export_params",
-            "eabnet_tpu_torch.tools.demo"} <= set(mods)
+            "eabnet_tpu_torch.tools.demo",
+            "eabnet_tpu_torch.tools.tail_sensitivity"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

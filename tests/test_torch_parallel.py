@@ -27,6 +27,8 @@ from eabnet_tpu_torch.train.trainer import _Items
 from eabnet_tpu_torch.utils.audio_io import write_wav
 from eabnet_tpu_torch.weights import to_jax_tree
 
+from _float64_port import enhance64, scaled_error
+from _kaiming_init import kaiming_model
 from test_data import SETTINGS_V2, _write_fake_corpus
 
 SERVE_ATOL = 2e-5  # tests/test_inference_mesh.py:75
@@ -246,7 +248,7 @@ def test_enhancer_over_a_mesh_matches_one_replica(norm, dtype):
     int8w, bf16 products of another batch size round otherwise)."""
     cfg = tiny_serving_cfg(norm)
     torch.manual_seed(0)
-    model = build_model(cfg.model)
+    model = kaiming_model(cfg.model)
     params = to_jax_tree(model, dict(model.named_parameters()))
     mesh = make_mesh(devices=["cpu", "cpu"])
     assert mesh.shape == {"data": 2}
@@ -275,6 +277,24 @@ def test_enhancer_over_a_mesh_matches_one_replica(norm, dtype):
             np.testing.assert_allclose(g, w, atol=SERVE_ATOL, rtol=0)
 
 
+def test_mesh_replicas_at_the_jax_init_scale():
+    """The mesh test's IN model drawn with the port's own initialisers
+    (the JAX package's, whose outputs are larger): the two replicas'
+    outputs within the JAX test's 2e-5 times max(1, max |output|) of one
+    replica on the whole batch run in float64."""
+    cfg = tiny_serving_cfg("IN")
+    torch.manual_seed(0)
+    model = build_model(cfg.model)
+    params = to_jax_tree(model, dict(model.named_parameters()))
+    rng = np.random.default_rng(1)
+    wavs = [(rng.standard_normal((3, n)) * 0.1).astype(np.float32)
+            for n in (4000, 2500, 3300)]
+    got = Enhancer(cfg, params, mesh=make_mesh(devices=["cpu", "cpu"]),
+                   device="cpu").enhance_batch(wavs)
+    err, limit = scaled_error(got, enhance64(cfg, params, wavs))
+    assert err <= limit, (err, limit)
+
+
 def test_cli_enhance_over_a_mesh(tmp_path):
     """cli.enhance --mesh on a directory, on the CPU's one-device mesh:
     every file written, equal to the Enhancer's output."""
@@ -283,7 +303,7 @@ def test_cli_enhance_over_a_mesh(tmp_path):
 
     cfg = tiny_serving_cfg("cLN")
     torch.manual_seed(1)
-    model = build_model(cfg.model)
+    model = kaiming_model(cfg.model)
     params = to_jax_tree(model, dict(model.named_parameters()))
     exp = tmp_path / "exp"
     (exp / "ckpt").mkdir(parents=True)
